@@ -1,0 +1,54 @@
+"""min_llm_inference_tpu_torch: the PyTorch/CUDA port of
+min_llm_inference_tpu, for NVIDIA Hopper (H100).
+
+It keeps the JAX package's layout, names and contracts (paged pool
+``[NP, 2, P, D]``, ``lengths == 0`` as the liveness flag, arithmetic int4
+packing, per-page scales set at row 0) and imports nothing of it, nor JAX.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a GPU they raise rather than run on the CPU.
+
+Ported so far: the AutonomousEngine full-grant path (no ring decode) and
+the fused-write paged attention kernel (csrc/paged_attention_grouped.cu).
+"""
+
+from .config import EngineConfig, ModelConfig, resolve_device
+from .constants import (
+    DEFAULT_INIT_NUM_BLOCKS,
+    DEFAULT_PAGE_SIZE,
+    EMPTY_ROW_TOKEN_ID,
+    EOF_TOKEN_ID,
+)
+from .metrics import ThroughputCounter, get_global_throughput_counter
+from .models.paged import PagedKVState, init_paged_state
+from .models.params import fuse_qkv_params, params_from_numpy
+from .runtime.autonomous import (
+    AutonomousEngine,
+    BurstStats,
+    StreamingSession,
+    init_auto_state,
+)
+from .runtime.item_storage import ItemStorage, Request
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "EngineConfig",
+    "ModelConfig",
+    "resolve_device",
+    "EMPTY_ROW_TOKEN_ID",
+    "EOF_TOKEN_ID",
+    "DEFAULT_PAGE_SIZE",
+    "DEFAULT_INIT_NUM_BLOCKS",
+    "ThroughputCounter",
+    "get_global_throughput_counter",
+    "PagedKVState",
+    "init_paged_state",
+    "fuse_qkv_params",
+    "params_from_numpy",
+    "AutonomousEngine",
+    "BurstStats",
+    "StreamingSession",
+    "init_auto_state",
+    "ItemStorage",
+    "Request",
+]

@@ -1,0 +1,95 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
+into its own shared library for Hopper (``sm_90a``), loaded with ctypes.
+Libraries are built at first use into ``_build/`` inside the package (listed
+in .gitignore), named by a hash of the source and flags so that an edit
+rebuilds. Nothing here runs at import time: the CPU tests import every
+module, and the CPU has no ``nvcc``.
+
+No ``--use_fast_math``: the kernels' quantizers must round exactly as the
+plain versions do (IEEE ``1.0f / s``, ``rintf``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+SOURCES = ("paged_attention_grouped.cu",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(source: str) -> str:
+    with open(os.path.join(CSRC_DIR, source), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
+
+
+def build(sources=SOURCES) -> dict:
+    """Compile every source whose library is missing, one ``nvcc`` per
+    source, all started together. Returns {source: seconds} for the
+    sources compiled by this call; raises with nvcc's output on failure."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    todo = [s for s in sources if not os.path.exists(library_path(s))]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    procs = []
+    for src in todo:
+        out = library_path(src)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, src)]
+        procs.append((src, out, tmp, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    took, failed = {}, []
+    for src, out, tmp, t0, proc in procs:
+        log, _ = proc.communicate()
+        took[src] = time.perf_counter() - t0
+        with open(out + ".log", "wb") as f:
+            f.write(log)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{src}:\n{log.decode(errors='replace')}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+    return took
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The library of one source, built first if needed."""
+    build((source,))
+    return ctypes.CDLL(library_path(source))
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.mli_error_string(rc).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")

@@ -1,0 +1,187 @@
+"""Paged decode attention with the fused KV write: the wrapper of the
+hand-written Hopper kernel ``csrc/paged_attention_grouped.cu`` and its plain
+PyTorch version.
+
+Counterpart of min_llm_inference_tpu/ops/paged_attention_grouped.py
+(the Pallas TPU kernel) in its modes (a) plain and (b) fused write; mode
+(c), the ring partial, waits for the ring-decode port.
+
+The wrapper takes the plain version only for tensors on the CPU. For CUDA
+tensors it launches the kernel or raises; it never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from .quant import kv_qmax, pack_int4_rows, quantize_rows_against_pages
+from .reference import inv_sqrt
+
+_SOURCE = "paged_attention_grouped.cu"
+_POOL_KINDS = {torch.float32: 0, torch.int8: 1}
+_IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dynamic shared memory a block may use on Hopper (227 KB)
+_MAX_SMEM = 232448
+
+
+def paged_decode_attention_grouped(
+    q,            # [B, D]
+    kv_pages,     # [NP, 2, P, Dk] (0 = K rows, 1 = V rows); Dk = D/2 if int4
+    lengths,      # [B] int32 (0 = dead slot)
+    page_table,   # [B, W] int32
+    k_scales=None,  # [NP] f32 per-page scales (int8/int4 pools)
+    v_scales=None,
+    k_new=None,   # [B, D] raw new-token K rows -> fused write at lengths-1
+    v_new=None,
+    *,
+    n_heads: int = 1,
+    packed_int4: bool = False,
+):
+    """Length-masked decode attention of q over each slot's pages, returning
+    f32 ``[B, D]`` (exact zeros for dead slots). With ``k_new``/``v_new``
+    the new rows are first quantized against the ALREADY UPDATED page
+    scales, packed for int4, and written in place at position lengths-1;
+    the call then returns ``(o, kv_pages)``, the row included in o."""
+    if (k_new is None) != (v_new is None):
+        raise ValueError("k_new and v_new go together")
+    if q.device.type == "cpu":
+        return paged_decode_attention_grouped_plain(
+            q, kv_pages, lengths, page_table, k_scales, v_scales, k_new,
+            v_new, n_heads=n_heads, packed_int4=packed_int4,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return _launch(q, kv_pages, lengths, page_table, k_scales, v_scales,
+                   k_new, v_new, n_heads, packed_int4)
+
+
+# kernel launches since the last reset (launches made by the wrapper only)
+paged_decode_attention_grouped.launches = 0
+
+
+def paged_decode_attention_grouped_plain(
+    q, kv_pages, lengths, page_table, k_scales=None, v_scales=None,
+    k_new=None, v_new=None, *, n_heads: int = 1, packed_int4: bool = False,
+):
+    """The plain version: quantize + pack + scatter of the new rows at
+    lengths-1 (pool written in place), then the gather oracle."""
+    from ..models.paged import _flat_scatter_indices, _scatter_kv
+    from ..models.paged import torch_paged_attend
+
+    NP, _, P, _ = kv_pages.shape
+    if k_new is not None:
+        pos = torch.clamp_min(lengths - 1, 0)
+        flat_idx = _flat_scatter_indices(page_table, pos, lengths > 0, P, NP)
+        qk, qv = k_new, v_new
+        if k_scales is not None:
+            qmax = kv_qmax(packed_int4)
+            qk = quantize_rows_against_pages(k_new, flat_idx, k_scales, P, qmax)
+            qv = quantize_rows_against_pages(v_new, flat_idx, v_scales, P, qmax)
+            if packed_int4:
+                qk = pack_int4_rows(qk, n_heads)
+                qv = pack_int4_rows(qv, n_heads)
+        _scatter_kv(kv_pages, flat_idx, qk, qv)
+    o = torch_paged_attend(kv_pages, k_scales, v_scales, q.float(), lengths,
+                           page_table, P, n_heads)
+    return o if k_new is None else (o, kv_pages)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The kernel's library (built on first use) with its C signatures."""
+    lib = _build.load(_SOURCE)
+    vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    lib.mli_grouped_attention.argtypes = [
+        vp, ll, vp, vp, vp, vp, vp, vp, ll, vp, ll, vp,
+        i, i, i, i, i, i, i, i, i, f, vp,
+    ]
+    lib.mli_grouped_attention.restype = ctypes.c_int
+    lib.mli_grouped_attention_smem.argtypes = [i, i, i, i, i]
+    lib.mli_grouped_attention_smem.restype = ctypes.c_longlong
+    lib.mli_error_string.argtypes = [i]
+    lib.mli_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_rows(name, t, B, D, dtype, device):
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype} on {device}, got "
+                         f"{t.dtype} on {t.device}")
+    if t.dim() != 2 or tuple(t.shape) != (B, D) or t.stride(1) != 1:
+        raise ValueError(f"{name} must be [{B}, {D}] with unit inner stride")
+
+
+def _check_contig(name, t, shape, dtype, device):
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype} on {device}, got "
+                         f"{t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+
+
+def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, k_new,
+            v_new, n_heads, packed_int4):
+    dev = q.device
+    if q.dim() != 2 or kv_pages.dim() != 4:
+        raise ValueError("q must be [B, D] and kv_pages [NP, 2, P, Dk]")
+    B, D = q.shape
+    NP, two, P, Dk = kv_pages.shape
+    W = page_table.shape[-1]
+    if q.dtype not in _IN_DTYPES:
+        raise ValueError(f"q dtype {q.dtype} not supported by the kernel")
+    if kv_pages.dtype not in _POOL_KINDS:
+        raise ValueError(f"pool dtype {kv_pages.dtype} not supported by "
+                         "the kernel (float32, int8, packed int4)")
+    quantized = kv_pages.dtype == torch.int8
+    if two != 2 or D % n_heads or Dk != (D // 2 if packed_int4 else D):
+        raise ValueError("pool shape does not match q / n_heads / packing")
+    if packed_int4 and (not quantized or (D // n_heads) % 2):
+        raise ValueError("packed int4 needs an int8 pool and an even head dim")
+    if quantized != (k_scales is not None) or quantized != (v_scales is not None):
+        raise ValueError("int8/int4 pools need k_scales and v_scales, float "
+                         "pools take none")
+    _check_rows("q", q, B, D, q.dtype, dev)
+    _check_contig("kv_pages", kv_pages, (NP, 2, P, Dk), kv_pages.dtype, dev)
+    _check_contig("lengths", lengths, (B,), torch.int32, dev)
+    _check_contig("page_table", page_table, (B, W), torch.int32, dev)
+    if quantized:
+        _check_contig("k_scales", k_scales, (NP,), torch.float32, dev)
+        _check_contig("v_scales", v_scales, (NP,), torch.float32, dev)
+    fused = k_new is not None
+    if fused:
+        _check_rows("k_new", k_new, B, D, q.dtype, dev)
+        _check_rows("v_new", v_new, B, D, q.dtype, dev)
+    pool_kind = 2 if packed_int4 else _POOL_KINDS[kv_pages.dtype]
+    # 4-element loads need every head's row segment and the pool base
+    # 4-element aligned (16 B for float32, 4 B for int8)
+    align = 4 * kv_pages.element_size()
+    vec = 4 if ((Dk // n_heads) % 4 == 0
+                and kv_pages.data_ptr() % align == 0) else 1
+    lib = _library()
+    smem = lib.mli_grouped_attention_smem(D, n_heads, W, P, pool_kind)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"kernel needs {smem} B of shared memory (> "
+                         f"{_MAX_SMEM}): context W*P={W * P} too long")
+    out = torch.empty((B, D), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.mli_grouped_attention(
+            q.data_ptr(), q.stride(0), kv_pages.data_ptr(),
+            lengths.data_ptr(), page_table.data_ptr(),
+            k_scales.data_ptr() if quantized else None,
+            v_scales.data_ptr() if quantized else None,
+            k_new.data_ptr() if fused else None,
+            k_new.stride(0) if fused else 0,
+            v_new.data_ptr() if fused else None,
+            v_new.stride(0) if fused else 0,
+            out.data_ptr(), B, D, NP, P, W, n_heads, pool_kind,
+            _IN_DTYPES[q.dtype], vec, inv_sqrt(D // n_heads), stream,
+        )
+    _build.check(lib, rc, "paged_decode_attention_grouped kernel")
+    paged_decode_attention_grouped.launches += 1
+    return (out, kv_pages) if fused else out

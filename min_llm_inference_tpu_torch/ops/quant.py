@@ -1,0 +1,88 @@
+"""KV quantization ops: int8 and packed int4 pages with per-page scales.
+
+Counterpart of the KV half of min_llm_inference_tpu/ops/quant.py; every
+function here must give the JAX function's bytes on identical float inputs.
+The float32 arithmetic is spelled out (``ones / s``, scalars rounded to
+float32 first) so that CPU and CUDA both do exactly one IEEE operation
+where JAX does one.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .indexing import index_set_drop_
+
+INT8_MAX = 127.0
+INT4_MAX = 7.0
+PAGE_SCALE_HEADROOM = 2.0
+
+
+def kv_qmax(packed: bool) -> float:
+    """Quantization range of a KV pool: int8 rows, or int4 values packed
+    two per byte (kv_dtype="int4")."""
+    return INT4_MAX if packed else INT8_MAX
+
+
+def inv_scale(s):
+    """Reciprocal of a page scale, 0 for an unset (zero) scale."""
+    safe = s.clamp_min(1e-30)
+    return torch.where(s > 0, torch.ones_like(safe) / safe, 0.0)
+
+
+def quantize_against(x, inv, qmax: float):
+    """clip(round(x * inv), +-qmax) as int8; round is half to even, as
+    jnp.round. x: [..., D]; inv broadcasts against x."""
+    return torch.clamp(torch.round(x.float() * inv), -qmax, qmax).to(torch.int8)
+
+
+def pack_int4_rows(q, n_heads: int):
+    """Pack integer values in [-7, 7] two per byte, arithmetically:
+    byte = 16*hi + lo. Per head of width dh, byte c of the packed head
+    block holds feature c as lo and feature c + dh/2 as hi.
+    q: [..., D] -> [..., D/2] int8."""
+    d = q.shape[-1]
+    dh = d // n_heads
+    assert dh % 2 == 0
+    heads = q.to(torch.int32).reshape(*q.shape[:-1], n_heads, dh)
+    lo = heads[..., : dh // 2]
+    hi = heads[..., dh // 2:]
+    return (16 * hi + lo).to(torch.int8).reshape(*q.shape[:-1], d // 2)
+
+
+def unpack_int4(packed, n_heads: int):
+    """Inverse of pack_int4_rows: [..., D/2] int8 -> [..., D] float32 with
+    integer values; hi = round(byte/16) is exact since |lo| <= 7 < 8."""
+    dp = packed.shape[-1]
+    b = packed.float().reshape(*packed.shape[:-1], n_heads, dp // n_heads)
+    hi = torch.round(b * (1.0 / 16.0))
+    lo = b - 16.0 * hi
+    return torch.cat([lo, hi], dim=-1).reshape(*packed.shape[:-1], 2 * dp)
+
+
+def dequantize_rows(q, scales):
+    """q: [..., D] int values; scales: [...] f32 -> [..., D] f32."""
+    return q.float() * scales[..., None].float()
+
+
+def update_page_scales(page_scales, rows, row_pid, qmax=INT8_MAX):
+    """In place: set the scale of each page in row_pid (out of range = no
+    update) from its row-0 write, absmax(row) * PAGE_SCALE_HEADROOM / qmax.
+    Valid row_pids are unique within a call. Returns page_scales."""
+    absmax = rows.float().abs().amax(dim=-1)
+    cand = absmax * float(np.float32(PAGE_SCALE_HEADROOM / qmax))
+    return index_set_drop_(page_scales, row_pid, cand)
+
+
+def quantize_rows_against_pages(values, flat_idx, page_scales, page_size,
+                                qmax=INT8_MAX):
+    """Quantize token rows against their page's (already updated) scale;
+    rows beyond the scale clip. values: [N, D]; flat_idx: [N] token index
+    page*P + row (out of range reads a clamped page; callers drop the
+    row)."""
+    n_pages = page_scales.shape[0]
+    pid = torch.clamp(torch.div(flat_idx, page_size, rounding_mode="floor"),
+                      0, n_pages - 1)
+    return quantize_against(values, inv_scale(page_scales[pid])[:, None],
+                            qmax)

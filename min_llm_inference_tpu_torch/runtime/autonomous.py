@@ -1,0 +1,408 @@
+"""Device-resident continuous batching: the scheduler runs on the device.
+
+Counterpart of min_llm_inference_tpu/runtime/autonomous.py, full-grant
+path. The request queue (padded prompts + lengths) is uploaded once; each
+burst frees dead slots' page groups (vectorized stack push), admits
+queue-head requests into dead slots (vectorized stack pop, one contiguous
+W-page group per slot), prefills them, runs n_forward_rounds of greedy
+decode and scatters the tokens into a device-resident output buffer. The
+host reads a 5-int status once per chunk of bursts and the outputs once at
+the end.
+
+Host reads inside a burst (each one scalar): the whole-burst liveness gate
+(JAX: ``lax.cond``) and, per sub-burst, the admitted count that picks the
+prefill bucket (JAX: ``lax.switch``). Nothing else in a burst syncs;
+``BurstStats.host_syncs`` counts every sync of a run.
+
+Not ported yet (raise NotImplementedError): overcommit, ring decode,
+sort_admits, sampling, and StreamingSession.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import EngineConfig, ModelConfig, resolve_device
+from ..metrics import get_global_throughput_counter
+from ..models.model import DEFAULT_CTX, decode_round_tokens, prefill_write_kv
+from ..models.paged import (
+    PagedKVState,
+    init_paged_state,
+    make_prefill_kv_writer,
+    make_round_kv_callbacks,
+)
+from ..models.params import fuse_qkv_params
+from ..ops.indexing import index_set_drop_
+from ..utils.profiling import phase
+from .item_storage import ItemStorage, Request
+
+I32 = torch.int32
+
+
+class AutoState(NamedTuple):
+    kv: PagedKVState
+    page_table: torch.Tensor   # [B, W] i32
+    lengths: torch.Tensor      # [B] i32 (0 = dead)
+    last_tokens: torch.Tensor  # [B] i32
+    rid: torch.Tensor          # [B] i32 request index per slot
+    allocated: torch.Tensor    # [B] bool, slot holds pages (needs freeing)
+    queue_head: torch.Tensor   # [] i32
+    free_top: torch.Tensor     # [] i32, page_stack[0:free_top] are free groups
+    page_stack: torch.Tensor   # [NP // W] i32 free-list of W-page group ids
+    out_tokens: torch.Tensor   # [R_total, S] i32 generated tokens by position
+    final_lens: torch.Tensor   # [R_total] i32 (0 = unfinished)
+
+
+@dataclasses.dataclass
+class BurstStats:
+    """What the engine did: bursts dispatched, bursts the liveness gate
+    skipped, decode rounds executed, and host syncs (the host waiting on the
+    device: scalar and output reads, and the run's two input uploads)."""
+
+    bursts: int = 0
+    skipped: int = 0
+    rounds: int = 0
+    host_syncs: int = 0
+
+
+def _check_supported(engine_cfg: EngineConfig, attention_impl: str) -> None:
+    if attention_impl not in ("grouped", "torch"):
+        raise ValueError(f"unknown attention_impl {attention_impl!r}")
+    if engine_cfg.overcommit:
+        raise NotImplementedError("overcommit is not ported yet")
+    if engine_cfg.decode_ring and attention_impl == "grouped":
+        raise NotImplementedError(
+            "ring decode is not ported yet: set decode_ring=False")
+    if engine_cfg.sort_admits:
+        raise NotImplementedError("sort_admits is not ported yet")
+
+
+def init_auto_state(model_cfg: ModelConfig, engine_cfg: EngineConfig,
+                    n_requests: int, device=None) -> AutoState:
+    """Full-grant state: the free list holds W-page group ids and a slot's
+    page-table row is one contiguous group. ``device``: ``cuda`` unless the
+    caller names another (raises without a GPU)."""
+    if engine_cfg.overcommit:
+        raise NotImplementedError("overcommit is not ported yet")
+    dev = resolve_device(device)
+    B = engine_cfg.n_slots
+    W = engine_cfg.pages_per_slot(model_cfg.n_seq)
+    NG = engine_cfg.n_pages // W
+
+    def zeros(*shape, dtype=I32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return AutoState(
+        kv=init_paged_state(model_cfg, engine_cfg, dev),
+        page_table=zeros(B, W),
+        lengths=zeros(B),
+        last_tokens=zeros(B),
+        rid=zeros(B),
+        allocated=zeros(B, dtype=torch.bool),
+        queue_head=zeros(),
+        free_top=torch.full((), NG, dtype=I32, device=dev),
+        page_stack=torch.arange(NG, dtype=I32, device=dev),
+        out_tokens=zeros(n_requests, model_cfg.n_seq),
+        final_lens=zeros(n_requests),
+    )
+
+
+def _status_of(st: AutoState):
+    """The 5-int status (live, queue head, free groups, retry depth,
+    finished count). Free groups counts the stack plus dead-but-allocated
+    slots, whose groups the next burst frees."""
+    dead_alloc = (st.lengths == 0) & st.allocated
+    return torch.stack([
+        (st.lengths > 0).sum(dtype=I32),
+        st.queue_head,
+        st.free_top + dead_alloc.sum(dtype=I32),
+        torch.zeros_like(st.queue_head),
+        (st.final_lens > 0).sum(dtype=I32),
+    ])
+
+
+def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
+               attention_impl: str, max_new: int, ctx, R: int,
+               stats: BurstStats, params, st: AutoState, prompts_all,
+               plens_all, n_real: int):
+    dev = st.lengths.device
+    B = engine_cfg.n_slots
+    W = st.page_table.shape[1]
+    NP = engine_cfg.n_pages
+    P = engine_cfg.page_size
+    S = model_cfg.n_seq
+    NG = NP // W
+    R_total, S_pre = prompts_all.shape
+    j = torch.arange(max_new, dtype=I32, device=dev)
+
+    # ---- 1. free the page groups of dead-but-allocated slots (group id =
+    # first page // W) ----
+    to_free = (st.lengths == 0) & st.allocated
+    free_ord = torch.cumsum(to_free, 0, dtype=I32) - 1
+    push_pos = torch.where(to_free, st.free_top + free_ord, NG)
+    page_stack = index_set_drop_(st.page_stack.clone(), push_pos,
+                                 st.page_table[:, 0] // W)
+    free_top = st.free_top + to_free.sum(dtype=I32)
+    allocated = st.allocated & ~to_free
+
+    # ---- 2. admission: pop the queue head into dead slots, one group each
+    dead = ~allocated
+    m = torch.minimum(dead.sum(dtype=I32).clamp_max(max_new),
+                      torch.minimum(n_real - st.queue_head, free_top))
+    # ascending dead slot ids first (jnp.nonzero(size=B) without a sync)
+    slot_order = torch.sort((~dead).to(torch.int8), stable=True).indices
+    admit = j < m
+    slot_ids = torch.where(admit, slot_order[:max_new].to(I32), B)
+    # rids are global request indices; buffer rows are rid % R_total
+    req_ix = st.queue_head + j
+    req_row = (req_ix % R_total).long()
+    plens = torch.where(admit, plens_all[req_row], 0)
+    prompts = prompts_all[req_row]                      # [max_new, S_pre]
+    # the j-th admitted request pops page_stack[free_top - 1 - j]
+    gids = page_stack[(free_top - 1 - j).clamp(0, NG - 1).long()]
+    granted = gids[:, None] * W + torch.arange(W, dtype=I32, device=dev)
+    page_table = index_set_drop_(st.page_table.clone(), slot_ids, granted)
+    free_top = free_top - m
+    queue_head = st.queue_head + m
+    lengths = index_set_drop_(st.lengths.clone(), slot_ids, plens)
+    last_prompt_tok = prompts[j.long(), (plens - 1).clamp(0, S_pre - 1).long()]
+    last_tokens = index_set_drop_(st.last_tokens.clone(), slot_ids,
+                                  last_prompt_tok)
+    rid = index_set_drop_(st.rid.clone(), slot_ids, req_ix)
+    allocated = allocated | index_set_drop_(
+        torch.zeros_like(allocated), slot_ids, torch.ones_like(admit))
+
+    # ---- 3. prefill the admitted prompts over the smallest bucket of rows
+    # that holds them (the first m rows of the max_new block) ----
+    kv = st.kv
+    sizes = [s for s in (64, 128, 256) if s < max_new] + [max_new]
+    n_adm = int(m)
+    stats.host_syncs += 1
+    bs = next((s for s in sizes if n_adm <= s), None) if n_adm else None
+    if bs is not None:
+        write_kv_block, _ = make_prefill_kv_writer(
+            kv, granted[:bs], plens[:bs], S_pre, P, NP,
+            n_heads=ctx.local_heads(model_cfg),
+        )
+        prefill_write_kv(params, model_cfg, prompts[:bs], plens[:bs],
+                         write_kv_block, ctx)
+
+    # ---- 4. decode rounds; the tokens scatter into the output buffers once
+    # per sub-burst ----
+    kv_pages, k_scales, v_scales = (list(kv.kv_pages), list(kv.k_scales),
+                                    list(kv.v_scales))
+    row = rid % R_total
+    toks, out_idx, fin_rid, fin_len = [], [], [], []
+    for _ in range(R):
+        live = lengths > 0
+        write_kv, attend = make_round_kv_callbacks(
+            model_cfg, engine_cfg, attention_impl, page_table,
+            kv_pages, k_scales, v_scales, lengths,
+            n_heads=ctx.local_heads(model_cfg),
+        )
+        tok, new_lengths = decode_round_tokens(
+            params, model_cfg, lengths, last_tokens, write_kv, attend, ctx)
+        # the emitted token's position in its sequence is the old length
+        toks.append(tok)
+        out_idx.append(torch.where(live, row * S + lengths, R_total * S))
+        fin_rid.append(torch.where(live & (new_lengths == 0), row, R_total))
+        fin_len.append(lengths + 1)
+        last_tokens = torch.where(live, tok, last_tokens)
+        lengths = new_lengths
+    stats.rounds += R
+    index_set_drop_(st.out_tokens.view(-1), torch.cat(out_idx),
+                    torch.cat(toks))
+    index_set_drop_(st.final_lens, torch.cat(fin_rid), torch.cat(fin_len))
+
+    new_st = AutoState(kv, page_table, lengths, last_tokens, rid, allocated,
+                       queue_head, free_top, page_stack, st.out_tokens,
+                       st.final_lens)
+    return new_st, _status_of(new_st)
+
+
+def _autonomous_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
+                      attention_impl: str, max_new: int, ctx,
+                      stats: BurstStats, params, st: AutoState, prompts_all,
+                      plens_all, n_real: int):
+    """One burst: ``subbursts`` repetitions of admit -> prefill -> decode
+    (n_forward_rounds / subbursts rounds each), so dead slots refill every
+    R/subbursts rounds while the host pays one status read per chunk. One
+    liveness gate covers the whole burst: with no live slot and nothing
+    queued the burst costs one scalar read and changes nothing."""
+    stats.bursts += 1
+    go = bool(((st.lengths > 0).any() | (st.queue_head < n_real)).item())
+    stats.host_syncs += 1
+    if not go:
+        stats.skipped += 1
+        return st, _status_of(st)
+    r_sub = engine_cfg.n_forward_rounds // engine_cfg.subbursts
+    status = None
+    for _ in range(engine_cfg.subbursts):
+        st, status = _sub_burst(
+            model_cfg, engine_cfg, attention_impl, max_new, ctx, r_sub,
+            stats, params, st, prompts_all, plens_all, n_real,
+        )
+    return st, status
+
+
+def _compact_slice(st: AutoState, b_new: int) -> AutoState:
+    """Drain-phase compaction: stable-sort live slots to the front and keep
+    b_new slot rows. Valid once the queue is drained (nothing is admitted
+    again) and at most b_new slots are live (checked by the caller)."""
+    order = torch.sort((st.lengths == 0).to(torch.int8), stable=True).indices
+    sel = order[:b_new]
+    return st._replace(
+        lengths=st.lengths[sel],
+        last_tokens=st.last_tokens[sel],
+        rid=st.rid[sel],
+        allocated=st.allocated[sel],
+        page_table=st.page_table[sel],
+    )
+
+
+class AutonomousEngine:
+    """Continuous-batching engine with the scheduler on the device.
+
+    ``attention_impl``: ``"grouped"`` (the fused-write CUDA kernel; its
+    plain version on the CPU) or ``"torch"`` (scatter + the gather oracle).
+    ``device``: ``cuda`` unless the caller names another; raises without a
+    GPU. ``params`` are tensors on that device (models.params_from_numpy).
+    """
+
+    def __init__(
+        self,
+        params,
+        model_cfg: ModelConfig,
+        engine_cfg: EngineConfig,
+        attention_impl: str = "grouped",
+        max_new_per_burst: int = 128,
+        bursts_per_chunk: int = 4,
+        request_capacity: int | None = None,
+        min_drain_slots: int | None = None,
+        temperature: float = 0.0,
+        device=None,
+    ):
+        model_cfg.validate()
+        engine_cfg.validate(model_cfg)
+        _check_supported(engine_cfg, attention_impl)
+        if temperature > 0:
+            raise NotImplementedError("sampling is not ported yet")
+        self.device = resolve_device(device)
+        if params["wte"].device.type != self.device.type:
+            raise ValueError(f"params are on {params['wte'].device}, the "
+                             f"engine runs on {self.device}")
+        self.params = fuse_qkv_params(params)
+        self.model_cfg = model_cfg
+        self.engine_cfg = engine_cfg
+        self.max_new = min(max_new_per_burst, engine_cfg.n_slots)
+        self.chunk = bursts_per_chunk
+        self.request_capacity = request_capacity
+        self.attention_impl = attention_impl
+        # drain downshift floor; n_slots = disabled
+        self.min_drain_slots = (max(8, min_drain_slots) if min_drain_slots
+                                else engine_cfg.n_slots)
+        self.stats = BurstStats()
+
+    def _burst_for(self, b_exec: int):
+        """The burst over the first b_exec slots (drain downshift: once the
+        queue is empty and liveness has fallen, projections, logits and the
+        kernel grid run over b_exec rows)."""
+        cfg = (self.engine_cfg if b_exec == self.engine_cfg.n_slots
+               else dataclasses.replace(self.engine_cfg, n_slots=b_exec))
+        max_new = min(self.max_new, b_exec)
+
+        def burst(st, prompts_all, plens_all, n_real):
+            return _autonomous_burst(
+                self.model_cfg, cfg, self.attention_impl, max_new,
+                DEFAULT_CTX, self.stats, self.params, st, prompts_all,
+                plens_all, n_real)
+
+        return burst
+
+    def run(self, item_storage: ItemStorage) -> None:
+        counter = get_global_throughput_counter()
+        S = self.model_cfg.n_seq
+        requests: List[Request] = item_storage.pop_new_items(1 << 30)
+        n = len(requests)
+        if n == 0:
+            return
+        cap = max(self.request_capacity or 0, n)
+        max_plen = max(len(r.tokens) for r in requests)
+        # prompt bucket: the next power of two, so a short-prompt queue does
+        # not prefill the full n_seq width
+        s_pre = min(S, 1 << (max_plen - 1).bit_length())
+        prompts_all = np.zeros((cap, s_pre), dtype=np.int32)
+        plens_all = np.zeros(cap, dtype=np.int32)
+        for i, req in enumerate(requests):
+            if not 0 < len(req.tokens) < S:
+                raise ValueError(f"request {req.id}: prompt length "
+                                 f"{len(req.tokens)} not in [1, {S - 1}]")
+            prompts_all[i, : len(req.tokens)] = req.tokens
+            plens_all[i] = len(req.tokens)
+
+        st = init_auto_state(self.model_cfg, self.engine_cfg, cap,
+                             self.device)
+        prompts_dev = torch.from_numpy(prompts_all).to(self.device)
+        plens_dev = torch.from_numpy(plens_all).to(self.device)
+        self.stats.host_syncs += 2  # blocking uploads (pageable memory)
+
+        counter.start_record()
+        done = False
+        prev_status = None
+        b_exec = self.engine_cfg.n_slots
+        while not done:
+            burst = self._burst_for(b_exec)
+            with phase("burst_dispatch"):
+                for _ in range(self.chunk):
+                    st, status = burst(st, prompts_dev, plens_dev, n)
+            with phase("status_fetch"):
+                live, head, free, retry, _fin = status.tolist()
+                self.stats.host_syncs += 1
+            pending = head < n or retry > 0
+            done = live == 0 and not pending
+            if not done and not pending:
+                # drain: nothing left to admit -- compact live slots to the
+                # front and drop to the smallest power-of-two width that
+                # still holds them
+                while (b_exec // 2 >= self.min_drain_slots
+                       and live <= b_exec // 2):
+                    b_exec //= 2
+                    st = _compact_slice(st, b_exec)
+            # a stall needs TWO consecutive no-progress chunks: pages are
+            # freed at the start of the NEXT burst
+            if live == 0 and pending:
+                if (head, free, retry) == prev_status:
+                    raise RuntimeError(
+                        "autonomous engine stalled: pool exhausted")
+                prev_status = (head, free, retry)
+            else:
+                prev_status = None
+        with phase("drain_fetch"):
+            packed = torch.cat([st.out_tokens, st.final_lens[:, None]], dim=1)
+            packed = packed.cpu().numpy()
+            self.stats.host_syncs += 1
+            out_tokens, final_lens = packed[:, :-1], packed[:, -1]
+        total = 0
+        for i, req in enumerate(requests):
+            fl = int(final_lens[i])
+            if fl <= 0:
+                raise RuntimeError(f"request {i} unfinished")
+            gen = out_tokens[i, plens_all[i]: fl].tolist()
+            req.tokens.extend(gen)
+            total += len(gen)
+            counter.note_first_token(req.id)
+            item_storage.add_finished(req)
+        counter.add_record_if_recording(total)
+        counter.stop_record()
+
+
+class StreamingSession:
+    """The streaming front end of AutonomousEngine (submit / step / poll /
+    close). Not ported yet: it waits for a later slice of the port."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("StreamingSession is not ported yet")
