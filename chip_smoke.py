@@ -2,18 +2,23 @@
 """Run the PyTorch/CUDA port (min_llm_inference_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                    # every phase
-    python3 chip_smoke.py --profile DIR      # + a device-time table in DIR
+    python3 chip_smoke.py --profile DIR      # + device-time tables in DIR
 
 Phases, one line each; any failure raises and exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build every kernel from csrc/ (one nvcc per source, in parallel);
   3. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes (pool bytes bit-identical, outputs within a stated
-     tolerance), and time kernel, plain version and bound;
-  4. engine parity on the card at a small float32 config: the kernel path
+     shapes of the path that runs it (pool bytes bit-identical, partials
+     and outputs within a stated tolerance), and time kernel, plain version
+     and bound: the fused-write grouped kernel at the reference path's
+     shapes; its ring-partial mode (c), the dgrid partial, the ring flush
+     and the int8 prefill scatter at the gpt2s path's shapes;
+  4. engine parity on the card at small configs: the kernel path
      (attention_impl="grouped") against the gather oracle ("torch"),
-     token for token, for int4, int8 and float32 KV;
-  5. the main path at full width, as ``python bench.py`` runs the JAX
+     token for token: no ring for int4, int8 and float32 KV (reference
+     model), and ring decode with dgrid on and off for int8, int4 (mode c)
+     and float32 KV (a small gpt2s-shaped model);
+  5. the reference path at full width, as ``python bench.py`` runs the JAX
      package with no flags: AutonomousEngine, the reference-parity model
      (1 layer, 1 head, emb 2048, vocab 1024, n_seq 128, bf16 weights made
      from a numpy seed the bench_params way), int4 paged KV (4096 pages of
@@ -22,7 +27,18 @@ Phases, one line each; any failure raises and exits non-zero:
      [1, 64]. One warm run (its host syncs counted), one timed run with
      every kernel launch counter set to 0 just before it, and one more run
      whose middle kernel call is copied and replayed: kernel vs plain
-     version on real main-path inputs, timed beside its bound.
+     version on real inputs, timed beside its bound;
+  6. the gpt2s path at full width, as ``python bench.py --model gpt2s``
+     runs the JAX package: the 12-layer GPT-2-small-class model (emb 768,
+     12 heads, FFN 3072, pre-LN, output projection, bf16 weights made from
+     a numpy seed the init_params way), int8 paged KV (4096 pages of 32
+     rows), 1024 slots, 16 rounds per burst with a per-burst decode ring,
+     the dgrid partial, sort_admits, 6 bursts per status read and the drain
+     downshift to 512 slots; 2048 requests with prompts uniform in [1, 64].
+     A warm run of 64 requests (its host syncs counted), one timed run with
+     every launch counter set to 0 just before it, and one replay run whose
+     middle call of each of its kernels is copied and replayed against the
+     plain version.
 Then a JSON line of per-kernel numbers and, last, the ok line.
 
 Float32 matmuls run in full float32: TF32 is turned off below.
@@ -52,11 +68,19 @@ F32_FLOPS = 67e12
 # the main path, as ``python bench.py`` runs the JAX package with no flags
 MAIN = dict(n_vocab=1024, emb_dim=2048, n_seq=128, page_size=32,
             n_slots=1024, n_pages=4096, requests=2048)
+# the gpt2s path, as ``python bench.py --model gpt2s`` runs it
+GPT2S = dict(n_vocab=1024, emb_dim=768, n_seq=128, n_layers=12, n_heads=12,
+             ffn_dim=3072, page_size=32, n_slots=1024, n_pages=4096,
+             requests=2048)
+
+
+T0 = time.perf_counter()
 
 
 def log(phase: str, **kv) -> None:
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
-          flush=True)
+    """One line per step, with the seconds since the script started."""
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items())
+          + f" t={time.perf_counter() - T0:.1f}s", flush=True)
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -128,6 +152,26 @@ def grouped_case(rng, dev, B, W, P, D, H, kv, in_dtype, NP=None):
     return t
 
 
+def bound_of(nbytes, ops) -> tuple:
+    """The least time in ms for ``nbytes`` of HBM traffic and ``ops`` f32
+    operations, and which of the two bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def timed_pair(res, kernel_fn, plain_fn, bound, kernel_iters=20) -> None:
+    res["ms"] = time_ms(kernel_fn, kernel_iters)
+    res["plain_ms"] = time_ms(plain_fn, 5, warmup=1)
+    res["bound_ms"], res["bound_by"] = bound
+
+
+def log_result(name, check, res) -> None:
+    """The [kernel] line of one check: what held and the numbers."""
+    log("kernel", case=name, **check, **{
+        k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in res.items()})
+
+
 def grouped_bound(live_lens, calls, B, D, Dk, W, P, in_bytes, pool_bytes,
                   scaled) -> tuple:
     """The least time in ms of ``calls`` fused-write calls over B slots
@@ -144,10 +188,7 @@ def grouped_bound(live_lens, calls, B, D, Dk, W, P, in_bytes, pool_bytes,
         + (2 * pages * 4 if scaled else 0)      # page scales
         + calls * (B * D * 4 + B * 4 + B * W * 4)  # o written; lengths, table
     )
-    ops = 4 * rows * D                          # q.K and p.V multiply-adds
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_of(nbytes, 4 * rows * D)       # q.K and p.V multiply-adds
 
 
 def grouped_bound_ms(t) -> tuple:
@@ -192,31 +233,287 @@ def check_grouped(name, t, timed, tol=1e-4):
         raise AssertionError(f"{name}: mode (a) max err {err_a} > {lim}")
     res = {"max_abs_err": max(err, err_a)}
     if timed:
-        res["ms"] = time_ms(lambda: kernel(t["q"], pool_k, *args, **kw), 20)
-        res["plain_ms"] = time_ms(
-            lambda: plain(t["q"], pool_p, *args, **kw), 5, warmup=1)
-        res["bound_ms"], res["bound_by"] = grouped_bound_ms(t)
+        timed_pair(res, lambda: kernel(t["q"], pool_k, *args, **kw),
+                   lambda: plain(t["q"], pool_p, *args, **kw),
+                   grouped_bound_ms(t))
         lens = t["lengths"].cpu().numpy()
         res["live_slots"] = int((lens > 0).sum())
         res["mean_live_len"] = float(lens[lens > 0].mean())
-    log("kernel", case=name, pool_bytes="identical", **{
-        k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in res.items()})
+    log_result(name, {"pool_bytes": "identical"}, res)
     return res
 
 
-# ---------------------------------------------------------------- phases 4-5
+def partial_case(rng, dev, B, W, P, D, kv, in_dtype, NP):
+    """Random ring-partial inputs in the engine's layout: full-grant page
+    groups, q a column slice of one fused [B, 3D] projection, ring_start
+    covering 0 (a live slot whose context is all in the ring), page
+    boundaries and the full width, ~10% dead slots."""
+    NG = NP // W
+    packed = kv == "int4"
+    Dk = D // 2 if packed else D
+    gids = rng.permutation(NG)[:B]
+    table = (gids[:, None] * W + np.arange(W)[None, :]).astype(np.int32)
+    rs = rng.integers(0, W * P, B).astype(np.int32)
+    rs[:6] = [0, 1, P - 1, P, P + 1, W * P - 1]
+    lengths = np.minimum(rs + rng.integers(1, 17, B), W * P).astype(np.int32)
+    lengths[6:][rng.random(B - 6) < 0.1] = 0
+    shape = (NP, 2, P, Dk)
+    if packed:
+        pool = (16 * rng.integers(-7, 8, shape, dtype=np.int8)
+                + rng.integers(-7, 8, shape, dtype=np.int8))
+    elif kv == "int8":
+        pool = rng.integers(-127, 128, shape, dtype=np.int8)
+    else:
+        pool = rng.standard_normal(shape, dtype=np.float32)
+    qkv = torch.from_numpy(
+        rng.standard_normal((B, 3 * D)).astype(np.float32)).to(dev, in_dtype)
+    t = {"q": qkv[:, :D], "pool": torch.from_numpy(pool).to(dev),
+         "rs": torch.from_numpy(rs).to(dev),
+         "lengths": torch.from_numpy(lengths).to(dev),
+         "table": torch.from_numpy(table).to(dev), "ks": None, "vs": None,
+         "packed": packed}
+    if kv != "float32":
+        for side in ("ks", "vs"):
+            t[side] = torch.from_numpy(
+                (rng.random(NP) * 0.05 + 0.001).astype(np.float32)).to(dev)
+    return t
 
 
-def numpy_init_params(rng, V, D, S, eof, eof_bias):
-    """Uniform(-1, 1) * 0.02 weights with an EOF bias: the recipe of the JAX
-    package's init_params, drawn from a numpy generator."""
+def partial_bound(t, H) -> tuple:
+    """Least time of one ring-partial call on inputs ``t``: q of the live
+    slots, the ceil(ring_start/P) pages each live slot attends over, their
+    scales, o/m/l written, lengths, ring_start and one table entry per slot
+    read; 4 f32 operations per context row per feature."""
+    B, D = t["q"].shape
+    _, _, P, Dk = t["pool"].shape
+    W = t["table"].shape[1]
+    lens = t["lengths"].cpu().numpy()
+    rs = np.minimum(t["rs"].cpu().numpy()[lens > 0], W * P).astype(np.int64)
+    pages = int(np.ceil(rs / P).sum())
+    nbytes = ((lens > 0).sum() * D * t["q"].element_size()
+              + pages * 2 * P * Dk * t["pool"].element_size()
+              + (2 * pages * 4 if t["ks"] is not None else 0)
+              + B * (D + 2 * H) * 4 + 3 * B * 4)
+    return bound_of(nbytes, 4 * int(rs.sum()) * D)
+
+
+def check_partial(name, kind, t, H, timed, tol=1e-4):
+    """Ring-partial kernel (``kind``: "grouped" mode c or "dgrid") vs its
+    plain version on the inputs ``t``: o, m and l within
+    tol * max(1, |x|max) (float32 sums in another order); rows without
+    context (dead, ring_start == 0) exactly o = 0, m = -inf, l = 0; the
+    pool unchanged."""
+    from min_llm_inference_tpu_torch.ops import paged_attention_dgrid as dg
+    from min_llm_inference_tpu_torch.ops import paged_attention_grouped as gr
+
+    P = t["pool"].shape[2]
+    if kind == "grouped":
+        args = (t["q"], t["pool"], t["lengths"], t["table"], t["ks"],
+                t["vs"])
+        kw = dict(ring_start=t["rs"], n_heads=H, packed_int4=t["packed"])
+        kernel = gr.paged_decode_attention_grouped
+        plain = gr.paged_decode_attention_grouped_plain
+    else:
+        args = (t["q"], t["pool"], t["ks"], t["vs"], t["rs"], t["lengths"],
+                t["table"])
+        kw = dict(n_heads=H, page_size=P)
+        kernel, plain = dg.dgrid_paged_partial, dg.dgrid_paged_partial_plain
+    pool0 = t["pool"].clone()
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(pool0, t["pool"]):
+        raise AssertionError(f"{name}: the pool changed")
+    empty = (t["lengths"] == 0) | (t["rs"] == 0)
+    o, m, l = got
+    if not (torch.all(o[empty] == 0) and torch.all(l[empty] == 0)
+            and torch.all(torch.isneginf(m[empty]))):
+        raise AssertionError(f"{name}: empty rows are not o=0, m=-inf, l=0")
+    err = 0.0
+    for label, g, w in zip("oml", got, want):
+        e = (g[~empty] - w[~empty]).abs().max().item()
+        lim = tol * max(1.0, w[~empty].abs().max().item())
+        if not e <= lim:
+            raise AssertionError(f"{name}: max |{label}_kernel - "
+                                 f"{label}_plain| {e} > {lim}")
+        err = max(err, e)
+    res = {"max_abs_err": err}
+    if timed:
+        timed_pair(res, lambda: kernel(*args, **kw), lambda: plain(*args, **kw),
+                   partial_bound(t, H))
+        lens = t["lengths"].cpu().numpy()
+        rs = t["rs"].cpu().numpy()[lens > 0]
+        res["live_slots"] = int((lens > 0).sum())
+        res["mean_live_ring_start"] = float(rs.mean())
+    log_result(name, {"o_m_l": "close"}, res)
+    return res
+
+
+def flush_case(rng, dev, B, W, P, Dk, NP, n_rounds, dtype=torch.int8):
+    """Random flush inputs as the gpt2s burst leaves them: full-grant page
+    groups, ring_start = burst-start length - 1, up to n_rounds rows per
+    slot (fewer where a request finished), ~10% dead slots, no ring_r0."""
+    NG = NP // W
+    gids = rng.permutation(NG)[:B]
+    table = (gids[:, None] * W + np.arange(W)[None, :]).astype(np.int32)
+    rs = rng.integers(0, W * P - n_rounds, B).astype(np.int32)
+    lengths = (rs + rng.integers(1, n_rounds + 1, B)).astype(np.int32)
+    lengths[rng.random(B) < 0.1] = 0
+    R = max(8, -(-n_rounds // 8) * 8)
+    if dtype == torch.int8:
+        pool = torch.from_numpy(rng.integers(-127, 128, (NP, 2, P, Dk),
+                                             dtype=np.int8))
+        ring = torch.from_numpy(rng.integers(-127, 128, (B, R, 2 * Dk),
+                                             dtype=np.int8))
+    else:
+        pool = torch.from_numpy(rng.standard_normal((NP, 2, P, Dk))).to(dtype)
+        ring = torch.from_numpy(rng.standard_normal((B, R, 2 * Dk))).to(dtype)
+    return {"pool": pool.to(dev), "ring": ring.to(dev),
+            "rs": torch.from_numpy(rs).to(dev),
+            "lengths": torch.from_numpy(lengths).to(dev),
+            "table": torch.from_numpy(table).to(dev),
+            "n_rounds": n_rounds, "r0": None}
+
+
+def flush_rows(t) -> tuple:
+    """(valid ring rows, touched pages) of one flush on inputs ``t``."""
+    B = t["ring"].shape[0]
+    P = t["pool"].shape[2]
+    lens = t["lengths"].cpu().numpy().astype(np.int64)
+    rs = t["rs"].cpu().numpy().astype(np.int64)
+    r0 = (np.zeros(B, np.int64) if t["r0"] is None
+          else t["r0"].cpu().numpy().astype(np.int64))
+    nv = np.where(lens > 0, np.minimum(lens - rs, t["n_rounds"] - r0), 0)
+    nv = np.maximum(nv, 0)
+    live = nv > 0
+    pages = (rs + nv - 1) // P - rs // P + 1
+    return int(nv.sum()), int(pages[live].sum())
+
+
+def flush_bound(t) -> tuple:
+    """Least time of one flush: each valid ring row (K and V) read once and
+    written once into its page, plus lengths, ring_start (and ring_r0) and
+    the touched table entries."""
+    B, _, two_dk = t["ring"].shape
+    rows, pages = flush_rows(t)
+    nbytes = (2 * rows * two_dk * t["ring"].element_size()
+              + B * 4 * (3 if t["r0"] is not None else 2) + pages * 4)
+    return bound_of(nbytes, 0)
+
+
+def check_flush(name, t, timed):
+    """Ring flush kernel vs its plain version on copies of one pool: pool
+    bytes bit-identical."""
+    from min_llm_inference_tpu_torch.ops.ring_flush import (
+        ring_flush as kernel,
+        ring_flush_plain as plain,
+    )
+
+    args = (t["ring"], t["rs"], t["lengths"], t["table"])
+    kw = dict(n_rounds=t["n_rounds"], ring_r0=t["r0"])
+    pool_k, pool_p = t["pool"].clone(), t["pool"].clone()
+    kernel(pool_k, *args, **kw)
+    plain(pool_p, *args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(pool_k.view(torch.uint8), pool_p.view(torch.uint8)):
+        raise AssertionError(f"{name}: pool bytes differ")
+    if torch.equal(pool_k, t["pool"]) and bool((t["lengths"] > 0).any()):
+        raise AssertionError(f"{name}: nothing was written")
+    res = {"max_abs_err": 0.0}
+    if timed:
+        timed_pair(res, lambda: kernel(pool_k, *args, **kw),
+                   lambda: plain(pool_p, *args, **kw), flush_bound(t))
+        res["valid_rows"], res["touched_pages"] = flush_rows(t)
+    log_result(name, {"pool_bytes": "identical"}, res)
+    return res
+
+
+def prefill_case(rng, dev, M, S_pre, D, P, W, NP, in_dtype=torch.bfloat16):
+    """Random prefill-scatter inputs as a gpt2s prefill bucket hands them
+    over: K and V column slices of one fused [M, S_pre, 2D] projection,
+    pages of full-grant groups, prompts uniform in [1, S_pre] (pages past
+    the prompt pid = NP), inverse scales of updated page scales."""
+    W_pre = S_pre // P
+    gids = rng.permutation(NP // W)[:M]
+    pages = (gids[:, None] * W + np.arange(W_pre)[None, :]).astype(np.int32)
+    plens = rng.integers(1, S_pre + 1, M)
+    covered = np.arange(W_pre)[None, :] * P < plens[:, None]
+    pid = np.where(covered, pages, NP).astype(np.int32)
+    s = (rng.random((2, M, W_pre)) * 0.05 + 0.001).astype(np.float32)
+    inv = np.float32(1) / s
+    kv = torch.from_numpy(
+        rng.standard_normal((M, S_pre, 2 * D)).astype(np.float32)).to(
+            dev, in_dtype)
+    return {"pool": torch.from_numpy(rng.integers(-127, 128, (NP, 2, P, D),
+                                                  dtype=np.int8)).to(dev),
+            "k": kv[..., :D], "v": kv[..., D:],
+            "pid": torch.from_numpy(pid).to(dev),
+            "inv_k": torch.from_numpy(inv[0]).to(dev),
+            "inv_v": torch.from_numpy(inv[1]).to(dev)}
+
+
+def prefill_bound(t) -> tuple:
+    """Least time of one prefill scatter: the covered pages' K and V rows
+    read once and written once as int8, plus pid and the inverse scales."""
+    M, S_pre, D = t["k"].shape
+    NP, _, P, _ = t["pool"].shape
+    covered = int((t["pid"] < NP).sum().item())
+    nbytes = (covered * 2 * P * D * (t["k"].element_size() + 1)
+              + t["pid"].numel() * 12)
+    return bound_of(nbytes, 0)
+
+
+def check_prefill(name, t, timed):
+    """Prefill scatter kernel vs its plain version on copies of one pool:
+    pool bytes bit-identical."""
+    from min_llm_inference_tpu_torch.ops.prefill_scatter import (
+        prefill_quant_scatter as kernel,
+        prefill_quant_scatter_plain as plain,
+    )
+
+    args = (t["k"], t["v"], t["pid"], t["inv_k"], t["inv_v"])
+    pool_k, pool_p = t["pool"].clone(), t["pool"].clone()
+    kernel(pool_k, *args)
+    plain(pool_p, *args)
+    torch.cuda.synchronize()
+    if not torch.equal(pool_k, pool_p):
+        bad = (pool_k != pool_p).nonzero()[:5].tolist()
+        raise AssertionError(f"{name}: pool bytes differ at {bad}")
+    res = {"max_abs_err": 0.0}
+    if timed:
+        timed_pair(res, lambda: kernel(pool_k, *args),
+                   lambda: plain(pool_p, *args), prefill_bound(t))
+        res["covered_pages"] = int((t["pid"] < t["pool"].shape[0]).sum())
+    log_result(name, {"pool_bytes": "identical"}, res)
+    return res
+
+
+# ---------------------------------------------------------------- phases 4-6
+
+
+def numpy_init_params(rng, model, eof_bias):
+    """Uniform(-1, 1) * 0.02 weights with an EOF bias and unit LayerNorm
+    gains: the recipe (and draw order) of the JAX package's init_params,
+    drawn from a numpy generator."""
     def u(shape):
         return (rng.uniform(-1.0, 1.0, shape) * 0.02).astype(np.float32)
 
+    V, D, F = model.n_vocab, model.emb_dim, model.ffn_dim
     wte = u((V, D))
-    wte[eof] += eof_bias
-    return {"wte": wte, "wpe": u((S, D)),
-            "layers": [{"wq": u((D, D)), "wk": u((D, D)), "wv": u((D, D))}]}
+    wte[model.eof_token_id] += eof_bias
+    tree = {"wte": wte, "wpe": u((model.n_seq, D)), "layers": []}
+    for _ in range(model.n_layers):
+        layer = {"wq": u((D, D)), "wk": u((D, D)), "wv": u((D, D))}
+        if model.use_output_proj:
+            layer["wo"] = u((D, D))
+        if F > 0:
+            layer["w_up"] = u((D, F))
+            layer["w_down"] = u((F, D))
+        if model.use_layernorm:
+            layer["ln1_g"] = np.ones(D, np.float32)
+            layer["ln2_g"] = np.ones(D, np.float32)
+        tree["layers"].append(layer)
+    return tree
 
 
 def bench_params(rng, V, D, S, eof):
@@ -236,11 +533,36 @@ def make_store(T, prompts):
     return store
 
 
-def engine_parity(T, dev):
+def parity(T, dev, model, params, cfg, prompts, label) -> int:
+    """The engine's kernel path ("grouped") against its gather oracle
+    ("torch", which never takes the ring), token for token. Returns the
+    generated token count."""
+    outs = {}
+    for impl in ("grouped", "torch"):
+        store = make_store(T, prompts)
+        T.AutonomousEngine(params, model, cfg, attention_impl=impl,
+                           device=dev).run(store)
+        outs[impl] = [store.finished[i].tokens for i in range(len(prompts))]
+    if outs["grouped"] != outs["torch"]:
+        first = next(i for i in range(len(prompts))
+                     if outs["grouped"][i] != outs["torch"][i])
+        raise AssertionError(f"engine parity {label}: request {first} "
+                             f"{outs['grouped'][first]} vs "
+                             f"{outs['torch'][first]}")
+    return sum(len(o) - len(p) for o, p in zip(outs["grouped"], prompts))
+
+
+def engine_parity(T, dev) -> int:
+    """Phase 4. Returns the grouped kernel's mode-(c) launches (the ring
+    configs with dgrid off)."""
+    from min_llm_inference_tpu_torch.ops import paged_attention_dgrid as dg
+    from min_llm_inference_tpu_torch.ops import paged_attention_grouped as gr
+    from min_llm_inference_tpu_torch.ops import prefill_scatter as ps
+    from min_llm_inference_tpu_torch.ops import ring_flush as rf
+
     model = T.ModelConfig(n_vocab=256, emb_dim=32, n_seq=64, eof_token_id=255)
     params = T.params_from_numpy(
-        numpy_init_params(np.random.default_rng(1), 256, 32, 64, 255, 0.05),
-        model, dev)
+        numpy_init_params(np.random.default_rng(1), model, 0.05), model, dev)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, 255, int(rng.integers(1, 24))).tolist()
                for _ in range(24)]
@@ -248,28 +570,128 @@ def engine_parity(T, dev):
         cfg = T.EngineConfig(n_slots=8, page_size=16, n_pages=32,
                              n_forward_rounds=4, subbursts=2, kv_dtype=kv,
                              decode_ring=False)
-        outs = {}
-        for impl in ("grouped", "torch"):
-            store = make_store(T, prompts)
-            T.AutonomousEngine(params, model, cfg, attention_impl=impl,
-                               device=dev).run(store)
-            outs[impl] = [store.finished[i].tokens for i in range(len(prompts))]
-        if outs["grouped"] != outs["torch"]:
-            first = next(i for i in range(len(prompts))
-                         if outs["grouped"][i] != outs["torch"][i])
-            raise AssertionError(f"engine parity {kv}: request {first} "
-                                 f"{outs['grouped'][first]} vs "
-                                 f"{outs['torch'][first]}")
-        n_gen = sum(len(o) - len(p) for o, p in zip(outs["grouped"], prompts))
+        n_gen = parity(T, dev, model, params, cfg, prompts, kv)
         log("engine", kv=kv, requests=len(prompts), generated=n_gen,
             tokens="grouped == torch")
+    # ring decode on a small gpt2s-shaped model (multi-head, LN, wo, FFN)
+    gmodel = T.ModelConfig(n_vocab=256, emb_dim=64, n_seq=64, n_layers=2,
+                           n_heads=4, ffn_dim=128, use_output_proj=True,
+                           use_layernorm=True, eof_token_id=255)
+    gparams = T.params_from_numpy(
+        numpy_init_params(np.random.default_rng(3), gmodel, 0.05), gmodel, dev)
+    mode_c = 0
+    for kv, extra in (("int8", dict(attn_dgrid=True, sort_admits=True)),
+                      ("int8", dict(subbursts=2)),
+                      ("int4", dict(subbursts=2, burst_flush=False)),
+                      ("float32", dict(attn_dgrid=True))):
+        cfg = T.EngineConfig(n_slots=8, page_size=16, n_pages=32,
+                             n_forward_rounds=4, kv_dtype=kv,
+                             decode_ring=True, **extra)
+        counters = (gr.paged_decode_attention_grouped, dg.dgrid_paged_partial,
+                    rf.ring_flush, ps.prefill_quant_scatter)
+        for c in counters:
+            c.launches = 0
+        label = f"ring-{kv}-" + "-".join(f"{k}={v}" for k, v in extra.items())
+        n_gen = parity(T, dev, gmodel, gparams, cfg, prompts, label)
+        got = [c.launches for c in counters]
+        if (got[1] > 0) != cfg.attn_dgrid or got[2] == 0 or (
+                (got[0] > 0) == cfg.attn_dgrid):
+            raise AssertionError(f"{label}: launches grouped/dgrid/flush/"
+                                 f"prefill {got} do not fit the config")
+        mode_c += 0 if cfg.attn_dgrid else got[0]
+        log("engine", case=label, requests=len(prompts), generated=n_gen,
+            tokens="grouped == torch",
+            launches_grouped_dgrid_flush_prefill="/".join(map(str, got)))
+    return mode_c
+
+
+def counters():
+    """The launch counter of every kernel wrapper, by kernel name."""
+    from min_llm_inference_tpu_torch.ops import paged_attention_dgrid as dg
+    from min_llm_inference_tpu_torch.ops import paged_attention_grouped as gr
+    from min_llm_inference_tpu_torch.ops import prefill_scatter as ps
+    from min_llm_inference_tpu_torch.ops import ring_flush as rf
+
+    return {"paged_decode_attention_grouped": gr.paged_decode_attention_grouped,
+            "dgrid_paged_partial": dg.dgrid_paged_partial,
+            "ring_flush": rf.ring_flush,
+            "prefill_quant_scatter": ps.prefill_quant_scatter}
+
+
+def make_prompts(n, seed, V):
+    """bench.py's request stream: prompts uniform in [1, 64] over the
+    vocabulary without EOF."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, V - 1, int(rng.integers(1, 65))).tolist()
+            for _ in range(n)]
+
+
+def drive(T, dev, params, model, cfg, n, seed, engine_kw, count_syncs=False):
+    """One AutonomousEngine run of ``n`` requests on the kernel path, timed
+    by the host clock around work that ends synchronized. With count_syncs,
+    PyTorch's sync debug mode records every device sync of the run; the
+    engine gets ``syncs_seen`` (those made from the package's code) and
+    ``sync_sites``."""
+    store = make_store(T, make_prompts(n, seed, model.n_vocab))
+    eng = T.AutonomousEngine(params, model, cfg, attention_impl="grouped",
+                             device=dev, **engine_kw)
+    T.get_global_throughput_counter().reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if count_syncs:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                eng.run(store)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        sites = collections.Counter(
+            (w.filename, w.lineno) for w in seen
+            if "synchroniz" in str(w.message))
+        pkg = os.path.dirname(T.__file__)
+        eng.syncs_seen = sum(n for (f, _), n in sites.items()
+                             if f.startswith(pkg))
+        eng.sync_sites = ",".join(
+            f"{os.path.relpath(f, HERE) if f.startswith(HERE) else f}"
+            f":{ln}x{n}" for (f, ln), n in sites.items())
+    else:
+        eng.run(store)
+    torch.cuda.synchronize()
+    return eng, store, time.perf_counter() - t0
+
+
+def warm_and_check_syncs(run, label):
+    """A 64-request warm run (cuBLAS handles, allocator pools, kernel
+    libraries). PyTorch's sync debug mode sees every sync of the run; the
+    engine must account for each one made from the package's code (all
+    sites are printed)."""
+    warm, _, _ = run(64, seed=1, count_syncs=True)
+    log("syncs", path=label, requests=64, bursts=warm.stats.bursts,
+        engine_count=warm.stats.host_syncs, seen_in_package=warm.syncs_seen,
+        sites=warm.sync_sites)
+    if warm.syncs_seen != warm.stats.host_syncs:
+        raise AssertionError(f"{label}: {warm.syncs_seen} device syncs in "
+                             f"the run, the engine accounts for "
+                             f"{warm.stats.host_syncs}")
+
+
+def check_outputs(store, n_req, S, V):
+    """Every request finished with 1..S-plen valid tokens; returns the
+    generated token count."""
+    if len(store.finished) != n_req:
+        raise AssertionError(f"{len(store.finished)}/{n_req} requests "
+                             "finished")
+    total = 0
+    for req in store.finished.values():
+        gen = req.tokens[req.prompt_len:]
+        if not gen or len(req.tokens) > S or not all(0 <= x < V for x in gen):
+            raise AssertionError(f"request {req.id}: bad output {gen[:8]}")
+        total += len(gen)
+    return total
 
 
 def main_path(T, dev, gpu_line, profile_dir=None):
-    from min_llm_inference_tpu_torch.ops.paged_attention_grouped import (
-        paged_decode_attention_grouped as kernel,
-    )
-
     V, D, S = MAIN["n_vocab"], MAIN["emb_dim"], MAIN["n_seq"]
     n_req = MAIN["requests"]
     model = T.ModelConfig(n_vocab=V, emb_dim=D, n_seq=S, eof_token_id=V - 1,
@@ -281,66 +703,21 @@ def main_path(T, dev, gpu_line, profile_dir=None):
                          subbursts=2)
     params = T.params_from_numpy(
         bench_params(np.random.default_rng(0), V, D, S, V - 1), model, dev)
-
-    def prompts(n, seed):
-        rng = np.random.default_rng(seed)
-        return [rng.integers(0, V - 1, int(rng.integers(1, 65))).tolist()
-                for _ in range(n)]
+    engine_kw = dict(max_new_per_burst=512, bursts_per_chunk=24,
+                     request_capacity=n_req)
 
     def run(n, seed, count_syncs=False):
-        store = make_store(T, prompts(n, seed))
-        eng = T.AutonomousEngine(params, model, cfg, attention_impl="grouped",
-                                 max_new_per_burst=512, bursts_per_chunk=24,
-                                 request_capacity=n_req, device=dev)
-        T.get_global_throughput_counter().reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if count_syncs:
-            with warnings.catch_warnings(record=True) as seen:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    eng.run(store)
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-            sites = collections.Counter(
-                (w.filename, w.lineno) for w in seen
-                if "synchroniz" in str(w.message))
-            pkg = os.path.dirname(T.__file__)
-            eng.syncs_seen = sum(n for (f, _), n in sites.items()
-                                 if f.startswith(pkg))
-            eng.sync_sites = ",".join(
-                f"{os.path.relpath(f, HERE) if f.startswith(HERE) else f}"
-                f":{ln}x{n}" for (f, ln), n in sites.items())
-        else:
-            eng.run(store)
-        torch.cuda.synchronize()
-        return eng, store, time.perf_counter() - t0
+        return drive(T, dev, params, model, cfg, n, seed, engine_kw,
+                     count_syncs)
 
-    # warm: cuBLAS handles, allocator pools, kernel library. PyTorch's sync
-    # debug mode sees every sync of the run; the engine must account for
-    # each one made from the package's code (all sites are printed).
-    warm, _, _ = run(64, seed=1, count_syncs=True)
-    log("syncs", requests=64, bursts=warm.stats.bursts,
-        engine_count=warm.stats.host_syncs, seen_in_package=warm.syncs_seen,
-        sites=warm.sync_sites)
-    if warm.syncs_seen != warm.stats.host_syncs:
-        raise AssertionError(f"{warm.syncs_seen} device syncs in the run, "
-                             f"the engine accounts for "
-                             f"{warm.stats.host_syncs}")
-    kernel.launches = 0
+    warm_and_check_syncs(run, "main")
+    kernels = counters()
+    for k in kernels.values():
+        k.launches = 0
     eng, store, wall = run(n_req, seed=2)
-    launches = kernel.launches
+    launches = kernels["paged_decode_attention_grouped"].launches
     st = eng.stats
-    if len(store.finished) != n_req:
-        raise AssertionError(f"{len(store.finished)}/{n_req} requests "
-                             "finished")
-    total = 0
-    for req in store.finished.values():
-        gen = req.tokens[req.prompt_len:]
-        if not gen or len(req.tokens) > S or not all(0 <= x < V for x in gen):
-            raise AssertionError(f"request {req.id}: bad output {gen[:8]}")
-        total += len(gen)
+    total = check_outputs(store, n_req, S, V)
     if launches != st.rounds * model.n_layers or launches == 0:
         raise AssertionError(f"kernel launches {launches} != rounds "
                              f"{st.rounds} x layers {model.n_layers}")
@@ -361,54 +738,148 @@ def main_path(T, dev, gpu_line, profile_dir=None):
         kernel_bound_ms_per_launch=f"{run_bound / launches:.6g}")
     # one call of that run replayed on its real inputs: kernel vs plain
     call_ix = launches // 2
+    snaps = capture_calls(lambda: run(n_req, seed=2), {
+        "grouped": ("models.paged", "paged_decode_attention_grouped",
+                    call_ix)})
+    args, kw = snaps["grouped"]
+    names = ("q", "pool", "lengths", "table", "ks", "vs", "k_new", "v_new")
     res = check_grouped(f"main-path-call-{call_ix}",
-                        capture_kernel_inputs(lambda: run(n_req, seed=2),
-                                              call_ix), timed=True)
+                        dict(zip(names, args), kw=kw), timed=True)
     res["run_bound_ms_per_launch"] = run_bound / launches
     if profile_dir:
-        profile_main_path(lambda: run(n_req, seed=2), profile_dir, wall)
+        profile_path(lambda: run(n_req, seed=2), profile_dir, wall, "main")
     return launches, res
 
 
-def capture_kernel_inputs(run, call_ix):
-    """Run the main path once more with the kernel's call site wrapped and
-    return a copy (strides kept) of the inputs of kernel call ``call_ix``,
-    taken before that call writes the pool."""
-    from min_llm_inference_tpu_torch.models import paged as paged_mod
+def gpt2s_path(T, dev, gpu_line, profile_dir=None):
+    """Phase 6: the gpt2s path at full width. Returns (launches by kernel
+    name of the timed run, {kernel name: replayed-call result})."""
+    g = GPT2S
+    V, S, L = g["n_vocab"], g["n_seq"], g["n_layers"]
+    n_req = g["requests"]
+    model = T.ModelConfig(n_vocab=V, emb_dim=g["emb_dim"], n_seq=S,
+                          n_layers=L, n_heads=g["n_heads"],
+                          ffn_dim=g["ffn_dim"], use_output_proj=True,
+                          use_layernorm=True, eof_token_id=V - 1,
+                          dtype="bfloat16")
+    cfg = T.EngineConfig(n_slots=g["n_slots"], n_pages=g["n_pages"],
+                         page_size=g["page_size"], n_forward_rounds=16,
+                         init_num_pages=2, kv_dtype="int8",
+                         max_prefill_batch=128, decode_ring=True,
+                         attn_dgrid=True, sort_admits=True, subbursts=1,
+                         burst_flush=True)
+    params = T.params_from_numpy(
+        numpy_init_params(np.random.default_rng(0), model, 0.0), model, dev)
+    engine_kw = dict(max_new_per_burst=512, bursts_per_chunk=6,
+                     min_drain_slots=512, request_capacity=n_req)
 
-    real = paged_mod.paged_decode_attention_grouped
-    names = ("q", "pool", "lengths", "table", "ks", "vs", "k_new", "v_new")
-    calls, snap = [0], {}
+    def run(n, seed, count_syncs=False):
+        return drive(T, dev, params, model, cfg, n, seed, engine_kw,
+                     count_syncs)
+
+    warm_and_check_syncs(run, "gpt2s")
+    kernels = counters()
+    for k in kernels.values():
+        k.launches = 0
+    eng, store, wall = run(n_req, seed=2)
+    launches = {name: k.launches for name, k in kernels.items()}
+    st = eng.stats
+    total = check_outputs(store, n_req, S, V)
+    executed = st.bursts - st.skipped
+    want = {"dgrid_paged_partial": st.rounds * L,
+            "ring_flush": executed * L,
+            "prefill_quant_scatter": st.prefills * L,
+            "paged_decode_attention_grouped": 0}
+    if launches != want or 0 in (st.rounds, executed, st.prefills):
+        raise AssertionError(f"gpt2s launches {launches}, expected {want} "
+                             f"(rounds {st.rounds}, executed bursts "
+                             f"{executed}, prefills {st.prefills})")
+    log("gpt2s", requests=n_req, generated=total, wall_s=f"{wall:.4f}",
+        tok_s=f"{total / wall:.1f}", gpu=f"'{gpu_line}'",
+        bursts=st.bursts, skipped=st.skipped, rounds=st.rounds,
+        prefills=st.prefills,
+        host_syncs_per_burst=f"{st.host_syncs / st.bursts:.3f}",
+        **{f"launches_{k}": v for k, v in launches.items()})
+    # the middle call of each kernel of that run, replayed on its inputs
+    names = ("dgrid_paged_partial", "ring_flush", "prefill_quant_scatter")
+    calls = {"dgrid_paged_partial": ("models.paged", "dgrid_paged_partial"),
+             "ring_flush": ("runtime.autonomous", "ring_flush"),
+             "prefill_quant_scatter": ("models.paged",
+                                       "prefill_quant_scatter")}
+    snaps = capture_calls(lambda: run(n_req, seed=2), {
+        n: (*calls[n], launches[n] // 2) for n in names})
+    res = {}
+    args, kw = snaps["dgrid_paged_partial"]
+    q, pool, ks, vs, rs, lens, table = args
+    res["dgrid_paged_partial"] = check_partial(
+        f"gpt2s-dgrid-call-{launches['dgrid_paged_partial'] // 2}", "dgrid",
+        {"q": q, "pool": pool, "ks": ks, "vs": vs, "rs": rs, "lengths": lens,
+         "table": table, "packed": False}, kw["n_heads"], timed=True)
+    args, kw = snaps["ring_flush"]
+    pool, ring, rs, lens, table = args
+    res["ring_flush"] = check_flush(
+        f"gpt2s-flush-call-{launches['ring_flush'] // 2}",
+        {"pool": pool, "ring": ring, "rs": rs, "lengths": lens,
+         "table": table, "n_rounds": kw["n_rounds"], "r0": kw["ring_r0"]},
+        timed=True)
+    args, _ = snaps["prefill_quant_scatter"]
+    res["prefill_quant_scatter"] = check_prefill(
+        f"gpt2s-prefill-call-{launches['prefill_quant_scatter'] // 2}",
+        dict(zip(("pool", "k", "v", "pid", "inv_k", "inv_v"), args)),
+        timed=True)
+    if profile_dir:
+        profile_path(lambda: run(n_req, seed=2), profile_dir, wall, "gpt2s")
+    return launches, res
+
+
+def capture_calls(run, targets):
+    """Run once more with call sites wrapped and return, for each target
+    ``label: (module under the package, attribute, call index)``, a copy
+    (strides kept) of the positional and keyword arguments of that call,
+    taken before the call writes anything."""
+    import importlib
 
     def copy(x):
-        if x is None:
-            return None
+        if not isinstance(x, torch.Tensor):
+            return x
         y = torch.empty_strided(x.size(), x.stride(), dtype=x.dtype,
                                 device=x.device)
         return y.copy_(x)
 
-    def wrapped(*args, **kw):
-        if calls[0] == call_ix:
-            snap.update({k: copy(a) for k, a in zip(names, args)}, kw=kw)
-        calls[0] += 1
-        return real(*args, **kw)
+    patched, snaps = [], {}
+    for label, (mod_name, attr, call_ix) in targets.items():
+        mod = importlib.import_module(f"min_llm_inference_tpu_torch.{mod_name}")
+        real = getattr(mod, attr)
+        calls = [0]
 
-    paged_mod.paged_decode_attention_grouped = wrapped
+        def wrapped(*args, _real=real, _calls=calls, _ix=call_ix,
+                    _label=label, **kw):
+            if _calls[0] == _ix:
+                snaps[_label] = ([copy(a) for a in args],
+                                 {k: copy(v) for k, v in kw.items()})
+            _calls[0] += 1
+            return _real(*args, **kw)
+
+        setattr(mod, attr, wrapped)
+        patched.append((mod, attr, real, calls))
     try:
         run()
     finally:
-        paged_mod.paged_decode_attention_grouped = real
-    if not snap:
-        raise AssertionError(f"the replay made {calls[0]} kernel calls, "
-                             f"none at index {call_ix}")
-    return snap
+        for mod, attr, real, _ in patched:
+            setattr(mod, attr, real)
+    missing = [label for label in targets if label not in snaps]
+    if missing:
+        raise AssertionError(f"the replay made "
+                             f"{[c[0] for *_, c in patched]} calls, none at "
+                             f"the index of {missing}")
+    return snaps
 
 
-def profile_main_path(run, out_dir, wall_unprofiled):
-    """One more main-path run under torch.profiler: device time by kernel
-    (device-side kernel and copy events only: the CPU ops and the phase
-    ranges also carry device time and would count it twice) and the sum's
-    share of the profiled and of the unprofiled wall."""
+def profile_path(run, out_dir, wall_unprofiled, label):
+    """One more run under torch.profiler: device time by kernel (device-side
+    kernel and copy events only: the CPU ops and the phase ranges also carry
+    device time and would count it twice) and the sum's share of the
+    profiled and of the unprofiled wall, into DIR/<label>_kernels.txt."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -416,7 +887,7 @@ def profile_main_path(run, out_dir, wall_unprofiled):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, _, wall = run()
-    phases ={"burst_dispatch", "status_fetch", "drain_fetch"}
+    phases = {"burst_dispatch", "status_fetch", "drain_fetch"}
     rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.key in phases:
@@ -426,12 +897,13 @@ def profile_main_path(run, out_dir, wall_unprofiled):
             rows.append((us, e.key, e.count))
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
-    with open(os.path.join(out_dir, "main_path_kernels.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{label}_kernels.txt"), "w") as f:
         for us, key, count in rows:
             f.write(f"{us / 1e3:12.3f} ms {count:8d}  {key}\n")
-    log("profile", wall_s=f"{wall:.4f}", device_busy_s=f"{busy_s:.4f}",
-        busy_share=f"{busy_s / wall:.4f}",
+    log("profile", path=label, wall_s=f"{wall:.4f}",
+        device_busy_s=f"{busy_s:.4f}", busy_share=f"{busy_s / wall:.4f}",
         busy_share_of_unprofiled=f"{busy_s / wall_unprofiled:.4f}",
+        launches=sum(r[2] for r in rows),
         top=";".join(f"{k[:48]}={us / 1e3:.2f}ms/{n}"
                      for us, k, n in rows[:8]))
 
@@ -439,10 +911,32 @@ def profile_main_path(run, out_dir, wall_unprofiled):
 # ---------------------------------------------------------------- main
 
 
+SOURCES = {
+    "paged_decode_attention_grouped": (
+        "paged_attention_grouped.cu", "paged_attention_grouped.py:645"),
+    "dgrid_paged_partial": (
+        "paged_attention_dgrid.cu", "paged_attention_dgrid.py:195"),
+    "ring_flush": ("ring_flush.cu", "ring_flush.py:131"),
+    "prefill_quant_scatter": ("prefill_scatter.cu", "prefill_scatter.py:93"),
+}
+
+
+def kernel_entry(name, launches, errs, res, **extra):
+    src, tpu = SOURCES[name]
+    return {"name": name, "route": "cuda",
+            "source": f"min_llm_inference_tpu_torch/csrc/{src}",
+            "replaces": f"min_llm_inference_tpu/ops/{tpu}",
+            "launches": launches, "max_abs_err": max(errs),
+            "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            "library_ms": None, **extra}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="also profile one main-path run into DIR")
+                    help="also profile one run of each full-width path "
+                         "into DIR")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -483,43 +977,94 @@ def main() -> int:
     main8 = check_grouped("main-int8", grouped_case(
         rng, dev, *shape, "int8", torch.bfloat16, NP=MAIN["n_pages"]),
         timed=True)
-    errs = [main4["max_abs_err"], main8["max_abs_err"]]
+    errs = {k: [] for k in SOURCES}
+    errs["paged_decode_attention_grouped"] += [main4["max_abs_err"],
+                                               main8["max_abs_err"]]
     for kv in ("int4", "int8", "float32"):
         for in_dtype in (torch.float32, torch.bfloat16):
             r = check_grouped(f"small-H2-{kv}-{str(in_dtype)[6:]}",
                               grouped_case(rng, dev, 8, 2, 16, 32, 2, kv,
                                            in_dtype), timed=False)
-            errs.append(r["max_abs_err"])
+            errs["paged_decode_attention_grouped"].append(r["max_abs_err"])
     r = check_grouped("odd-dh-int4", grouped_case(
         rng, dev, 5, 3, 8, 36, 3, "int4", torch.float32), timed=False)
-    errs.append(r["max_abs_err"])
+    errs["paged_decode_attention_grouped"].append(r["max_abs_err"])
 
-    engine_parity(T, dev)
-    # ms, plain_ms and bound_ms: one call of the main path replayed on its
-    # real inputs
-    launches, ref = main_path(T, dev, gpu_line, args.profile)
-    errs.append(ref["max_abs_err"])
+    # the gpt2s path's shapes: 1024 slots, W = 4 pages of 32 rows, 4096
+    # pages, emb 768 in 12 heads, int8 pages, bf16 projections
+    g = GPT2S
+    gW = -(-g["n_seq"] // g["page_size"])
+    gshape = (g["n_slots"], gW, g["page_size"], g["emb_dim"])
+    mode_c = {}
+    for kv in ("int8", "int4"):
+        mode_c[kv] = check_partial(
+            f"gpt2s-mode-c-{kv}", "grouped",
+            partial_case(rng, dev, *gshape, kv, torch.bfloat16, g["n_pages"]),
+            g["n_heads"], timed=True)
+        errs["paged_decode_attention_grouped"].append(
+            mode_c[kv]["max_abs_err"])
+    dgrid_rand = check_partial(
+        "gpt2s-dgrid-int8", "dgrid",
+        partial_case(rng, dev, *gshape, "int8", torch.bfloat16, g["n_pages"]),
+        g["n_heads"], timed=True)
+    errs["dgrid_paged_partial"].append(dgrid_rand["max_abs_err"])
+    for kind, kvs in (("grouped", ("float32", "int8", "int4")),
+                      ("dgrid", ("float32", "int8"))):
+        for kv in kvs:
+            for H, D in ((1, 32), (2, 32), (12, 96)):
+                r = check_partial(
+                    f"small-{kind}-H{H}-{kv}", kind,
+                    partial_case(rng, dev, 16, 4, 8, D, kv, torch.float32,
+                                 18 * 4), H, timed=False)
+                errs["paged_decode_attention_grouped" if kind == "grouped"
+                     else "dgrid_paged_partial"].append(r["max_abs_err"])
+    flush_rand = check_flush("gpt2s-flush-int8", flush_case(
+        rng, dev, g["n_slots"], gW, g["page_size"], g["emb_dim"],
+        g["n_pages"], 16), timed=True)
+    for dtype, Dk in ((torch.float32, 24), (torch.bfloat16, 20),
+                      (torch.int8, 7)):
+        t = flush_case(rng, dev, 13, 3, 8, Dk, 16 * 3, 6, dtype)
+        t["r0"] = torch.from_numpy(
+            rng.integers(0, 6, 13).astype(np.int32)).to(dev)
+        check_flush(f"small-flush-{str(dtype)[6:]}-r0", t, timed=False)
+    # the largest prefill bucket: max_new_per_burst rows of 64-token prompts
+    prefill_rand = check_prefill("gpt2s-prefill-bf16", prefill_case(
+        rng, dev, min(512, g["n_slots"]), 64, g["emb_dim"], g["page_size"],
+        gW, g["n_pages"]), timed=True)
+    check_prefill("small-prefill-f32-odd", prefill_case(
+        rng, dev, 9, 16, 36, 8, 4, 64, torch.float32), timed=False)
 
-    print(json.dumps({"kernels": [{
-        "name": "paged_decode_attention_grouped",
-        "route": "cuda",
-        "source": "min_llm_inference_tpu_torch/csrc/paged_attention_grouped.cu",
-        "replaces": "min_llm_inference_tpu/ops/paged_attention_grouped.py:645",
-        "launches": launches,
-        "max_abs_err": max(errs),
-        "ms": ref["ms"],
-        "plain_ms": ref["plain_ms"],
-        "bound_ms": ref["bound_ms"],
-        "bound_by": ref["bound_by"],
-        "library_ms": None,
-        "mean_live_len": ref["mean_live_len"],
-        "live_slots": ref["live_slots"],
-        "run_bound_ms_per_launch": ref["run_bound_ms_per_launch"],
-        "random_int4_ms": main4["ms"],
-        "random_int4_bound_ms": main4["bound_ms"],
-        "random_int8_ms": main8["ms"],
-        "random_int8_bound_ms": main8["bound_ms"],
-    }]}), flush=True)
+    mode_c_engine = engine_parity(T, dev)
+    # ms, plain_ms and bound_ms: one call of each path replayed on its real
+    # inputs; launches: each path's timed run
+    ref_launches, ref = main_path(T, dev, gpu_line, args.profile)
+    errs["paged_decode_attention_grouped"].append(ref["max_abs_err"])
+    g_launches, g_res = gpt2s_path(T, dev, gpu_line, args.profile)
+    for name, r in g_res.items():
+        errs[name].append(r["max_abs_err"])
+
+    entries = [kernel_entry(
+        "paged_decode_attention_grouped", ref_launches,
+        errs["paged_decode_attention_grouped"], ref,
+        mean_live_len=ref["mean_live_len"], live_slots=ref["live_slots"],
+        run_bound_ms_per_launch=ref["run_bound_ms_per_launch"],
+        random_int4_ms=main4["ms"], random_int4_bound_ms=main4["bound_ms"],
+        random_int8_ms=main8["ms"], random_int8_bound_ms=main8["bound_ms"],
+        mode_c_gpt2s_int8_ms=mode_c["int8"]["ms"],
+        mode_c_gpt2s_int8_plain_ms=mode_c["int8"]["plain_ms"],
+        mode_c_gpt2s_int8_bound_ms=mode_c["int8"]["bound_ms"],
+        mode_c_gpt2s_int4_ms=mode_c["int4"]["ms"],
+        mode_c_gpt2s_int4_plain_ms=mode_c["int4"]["plain_ms"],
+        mode_c_gpt2s_int4_bound_ms=mode_c["int4"]["bound_ms"],
+        mode_c_engine_parity_launches=mode_c_engine)]
+    rand = {"dgrid_paged_partial": dgrid_rand, "ring_flush": flush_rand,
+            "prefill_quant_scatter": prefill_rand}
+    for name in ("dgrid_paged_partial", "ring_flush", "prefill_quant_scatter"):
+        entries.append(kernel_entry(
+            name, g_launches[name], errs[name], g_res[name],
+            random_ms=rand[name]["ms"], random_bound_ms=rand[name]["bound_ms"],
+            random_plain_ms=rand[name]["plain_ms"]))
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

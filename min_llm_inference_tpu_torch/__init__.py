@@ -7,8 +7,13 @@ packing, per-page scales set at row 0) and imports nothing of it, nor JAX.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU they raise rather than run on the CPU.
 
-Ported so far: the AutonomousEngine full-grant path (no ring decode) and
-the fused-write paged attention kernel (csrc/paged_attention_grouped.cu).
+Ported so far: the AutonomousEngine full-grant path, with and without
+ring decode (the reference model of ``bench.py`` and its 12-layer gpt2s
+path), on four hand-written CUDA kernels: paged attention with the fused
+write and the ring partial (csrc/paged_attention_grouped.cu), the
+group-view ring partial (csrc/paged_attention_dgrid.cu), the ring flush
+(csrc/ring_flush.cu) and the int8 prefill quantize + scatter
+(csrc/prefill_scatter.cu).
 """
 
 from .config import EngineConfig, ModelConfig, resolve_device

@@ -2,9 +2,9 @@
 
 Same fields, defaults and ``validate()`` as min_llm_inference_tpu/config.py,
 so a JAX config converts field for field (``EngineConfig(**asdict(cfg))``).
-Options the port does not run yet (ring decode, overcommit, the dense/flat/
-dgrid ring formulations) are still accepted here and rejected by the engine
-that would run them.
+Options the port does not run yet (overcommit, the dense and flat ring
+formulations) are still accepted here and rejected by the engine that would
+run them.
 """
 
 from __future__ import annotations

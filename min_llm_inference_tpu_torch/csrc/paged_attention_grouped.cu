@@ -1,10 +1,10 @@
-// Fused-write paged decode attention for Hopper (sm_90a).
+// Fused-write paged decode attention and ring partial for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel
 //   min_llm_inference_tpu/ops/paged_attention_grouped.py ::
 //   paged_decode_attention_grouped (kernel body _grouped_kernel)
-// in its plain mode (a) and its fused-write mode (b). Mode (c), the ring
-// partial, is not ported here.
+// in its plain mode (a), its fused-write mode (b) and its ring-partial
+// mode (c).
 //
 // What it computes, for each slot b with L = lengths[b] > 0:
 //   (b only) quantize the raw new K and V rows against the ALREADY UPDATED
@@ -16,6 +16,13 @@
 // Dead slots (L == 0) write nothing and output exact zeros; their table
 // rows may hold page ids of live slots, so every read and write is gated
 // on L.
+// (c) the pool is read-only and holds positions < ring_start[b] (the
+//   burst's own rows live in a ring merged outside the kernel): the block
+//   attends over positions [0, ring_start) of a live slot and writes the
+//   online-softmax partial o (normalized), m = max score, l = sum of
+//   exp(score - m) per head. A live slot with ring_start == 0 and a dead
+//   slot write o = 0, m = -inf, l = 0 (the merge's coefficient of an empty
+//   partial is then exactly 0, never NaN).
 //
 // Bound on this card: bytes. Each live slot reads L K rows and L V rows of
 // Dk bytes (int4: D/2) once and does ~4*L*D flops on them, about one flop
@@ -47,6 +54,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
 enum PoolKind { kF32 = 0, kI8 = 1, kI4 = 2 };
+enum Mode { kPlain = 0, kFused = 1, kRing = 2 };
 
 template <int KIND> struct Elem { using T = int8_t; };
 template <> struct Elem<kF32> { using T = float; };
@@ -135,7 +143,7 @@ struct Smem {
   }
 };
 
-template <int KIND, typename TIn, int VEC, bool FUSED>
+template <int KIND, typename TIn, int VEC, int MODE>
 __global__ void __launch_bounds__(kThreads)
 grouped_attention_kernel(const TIn* __restrict__ q, long long q_stride,
                          typename Elem<KIND>::T* pool,
@@ -145,9 +153,13 @@ grouped_attention_kernel(const TIn* __restrict__ q, long long q_stride,
                          const float* __restrict__ v_scales,
                          const TIn* __restrict__ k_new, long long kn_stride,
                          const TIn* __restrict__ v_new, long long vn_stride,
-                         float* __restrict__ out, int D, int NP, int P, int W,
-                         int H, float sm_scale) {
+                         float* __restrict__ out,
+                         const int* __restrict__ ring_start,
+                         float* __restrict__ m_out, float* __restrict__ l_out,
+                         int D, int NP, int P, int W, int H, float sm_scale) {
   using E = typename Elem<KIND>::T;
+  constexpr bool FUSED = MODE == kFused;
+  constexpr bool RING = MODE == kRing;
   constexpr bool kQuant = KIND != kF32;
   constexpr bool kPacked = KIND == kI4;
   const int b = blockIdx.x;
@@ -156,10 +168,19 @@ grouped_attention_kernel(const TIn* __restrict__ q, long long q_stride,
   const int dh = D / H;
   const int dhk = Dk / H;  // storage elements per head
   const int Lcap = W * P;
-  const int L = min(max(lengths[b], 0), Lcap);
+  // positions the block attends over: [0, L)
+  const int live_len = min(max(lengths[b], 0), Lcap);
+  const int L = RING ? (live_len > 0 ? min(max(ring_start[b], 0), Lcap) : 0)
+                     : live_len;
   float* o = out + static_cast<long long>(b) * D;
   if (L == 0) {
     for (int c = tid; c < D; c += kThreads) o[c] = 0.0f;
+    if constexpr (RING) {
+      for (int h = tid; h < H; h += kThreads) {
+        m_out[static_cast<long long>(b) * H + h] = -CUDART_INF_F;
+        l_out[static_cast<long long>(b) * H + h] = 0.0f;
+      }
+    }
     return;
   }
 
@@ -251,7 +272,13 @@ grouped_attention_kernel(const TIn* __restrict__ q, long long q_stride,
       s[t] = kQuant ? p * v_scales[tok_page[t]] : p;
     }
     l = block_reduce<false>(l, red);
-    if (tid == 0) l_s[h] = l;
+    if (tid == 0) {
+      l_s[h] = l;
+      if constexpr (RING) {
+        m_out[static_cast<long long>(b) * H + h] = m;
+        l_out[static_cast<long long>(b) * H + h] = l;
+      }
+    }
   }
   __syncthreads();
 
@@ -287,17 +314,18 @@ grouped_attention_kernel(const TIn* __restrict__ q, long long q_stride,
   }
 }
 
-template <int KIND, typename TIn, int VEC, bool FUSED>
+template <int KIND, typename TIn, int VEC, int MODE>
 cudaError_t launch(const void* q, long long q_stride, void* pool,
                    const int* lengths, const int* table, const float* k_scales,
                    const float* v_scales, const void* k_new, long long kn_stride,
-                   const void* v_new, long long vn_stride, float* out, int B,
+                   const void* v_new, long long vn_stride, float* out,
+                   const int* ring_start, float* m_out, float* l_out, int B,
                    int D, int NP, int P, int W, int H, float sm_scale,
                    cudaStream_t stream) {
   using E = typename Elem<KIND>::T;
   const int Dk = KIND == kI4 ? D / 2 : D;
   const Smem lay(D, Dk, H, W * P, sizeof(E));
-  auto kernel = grouped_attention_kernel<KIND, TIn, VEC, FUSED>;
+  auto kernel = grouped_attention_kernel<KIND, TIn, VEC, MODE>;
   if (lay.total > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(lay.total));
@@ -306,29 +334,33 @@ cudaError_t launch(const void* q, long long q_stride, void* pool,
   kernel<<<B, kThreads, lay.total, stream>>>(
       static_cast<const TIn*>(q), q_stride, static_cast<E*>(pool), lengths,
       table, k_scales, v_scales, static_cast<const TIn*>(k_new), kn_stride,
-      static_cast<const TIn*>(v_new), vn_stride, out, D, NP, P, W, H, sm_scale);
+      static_cast<const TIn*>(v_new), vn_stride, out, ring_start, m_out, l_out,
+      D, NP, P, W, H, sm_scale);
   return cudaGetLastError();
 }
 
 template <int KIND, typename TIn>
-cudaError_t dispatch_vec(int vec, bool fused, const void* q, long long q_stride,
+cudaError_t dispatch_vec(int vec, int mode, const void* q, long long q_stride,
                          void* pool, const int* lengths, const int* table,
                          const float* k_scales, const float* v_scales,
                          const void* k_new, long long kn_stride,
                          const void* v_new, long long vn_stride, float* out,
+                         const int* ring_start, float* m_out, float* l_out,
                          int B, int D, int NP, int P, int W, int H,
                          float sm_scale, cudaStream_t stream) {
-#define MLI_LAUNCH(V, F)                                                     \
-  return launch<KIND, TIn, V, F>(q, q_stride, pool, lengths, table, k_scales, \
+#define MLI_LAUNCH(V, M)                                                     \
+  return launch<KIND, TIn, V, M>(q, q_stride, pool, lengths, table, k_scales, \
                                  v_scales, k_new, kn_stride, v_new,          \
-                                 vn_stride, out, B, D, NP, P, W, H,          \
-                                 sm_scale, stream)
+                                 vn_stride, out, ring_start, m_out, l_out,   \
+                                 B, D, NP, P, W, H, sm_scale, stream)
   if (vec == 4) {
-    if (fused) MLI_LAUNCH(4, true);
-    MLI_LAUNCH(4, false);
+    if (mode == kFused) MLI_LAUNCH(4, kFused);
+    if (mode == kRing) MLI_LAUNCH(4, kRing);
+    MLI_LAUNCH(4, kPlain);
   }
-  if (fused) MLI_LAUNCH(1, true);
-  MLI_LAUNCH(1, false);
+  if (mode == kFused) MLI_LAUNCH(1, kFused);
+  if (mode == kRing) MLI_LAUNCH(1, kRing);
+  MLI_LAUNCH(1, kPlain);
 #undef MLI_LAUNCH
 }
 
@@ -339,29 +371,37 @@ extern "C" {
 // The launcher of the kernel above. pool_kind: 0 float32, 1 int8, 2 packed
 // int4 (int8 storage, Dk = D/2). q/k_new/v_new are float32 (in_bf16 = 0) or
 // bfloat16 (in_bf16 = 1) rows with the given row strides (elements) and
-// unit inner stride; k_new == NULL selects mode (a) (no insert). vec is 4
-// when every head's row segment is 4-element aligned, else 1. Returns the
-// cudaError_t of the launch (0 = launched).
+// unit inner stride; k_new == NULL selects mode (a) (no insert), and
+// ring_start != NULL mode (c), which also writes m_out/l_out [B, H] (k_new
+// must then be NULL). vec is 4 when every head's row segment is 4-element
+// aligned, else 1. Returns the cudaError_t of the launch (0 = launched).
 int mli_grouped_attention(const void* q, long long q_stride, void* pool,
                           const int* lengths, const int* table,
                           const float* k_scales, const float* v_scales,
                           const void* k_new, long long kn_stride,
                           const void* v_new, long long vn_stride, float* out,
+                          const int* ring_start, float* m_out, float* l_out,
                           int B, int D, int NP, int P, int W, int H,
                           int pool_kind, int in_bf16, int vec, float sm_scale,
                           void* stream) {
   if (B <= 0) return 0;
   if (H <= 0 || D % H != 0 || (vec != 1 && vec != 4)) return cudaErrorInvalidValue;
+  if (ring_start != nullptr &&
+      (k_new != nullptr || m_out == nullptr || l_out == nullptr))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool fused = k_new != nullptr;
+  const int mode = ring_start != nullptr ? kRing
+                   : k_new != nullptr    ? kFused
+                                         : kPlain;
 #define MLI_DISPATCH(KIND)                                                   \
   return in_bf16                                                             \
-      ? dispatch_vec<KIND, __nv_bfloat16>(vec, fused, q, q_stride, pool,    \
+      ? dispatch_vec<KIND, __nv_bfloat16>(vec, mode, q, q_stride, pool,     \
             lengths, table, k_scales, v_scales, k_new, kn_stride, v_new,    \
-            vn_stride, out, B, D, NP, P, W, H, sm_scale, s)                 \
-      : dispatch_vec<KIND, float>(vec, fused, q, q_stride, pool, lengths,   \
+            vn_stride, out, ring_start, m_out, l_out, B, D, NP, P, W, H,    \
+            sm_scale, s)                                                    \
+      : dispatch_vec<KIND, float>(vec, mode, q, q_stride, pool, lengths,    \
             table, k_scales, v_scales, k_new, kn_stride, v_new, vn_stride,  \
-            out, B, D, NP, P, W, H, sm_scale, s)
+            out, ring_start, m_out, l_out, B, D, NP, P, W, H, sm_scale, s)
   switch (pool_kind) {
     case kF32: MLI_DISPATCH(kF32);
     case kI8: MLI_DISPATCH(kI8);

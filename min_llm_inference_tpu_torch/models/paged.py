@@ -16,6 +16,12 @@ Two interchangeable decode attentions:
     a contiguous view and run the masked attention oracle;
   * ``grouped`` -- the fused-write kernel (ops/paged_attention_grouped.py):
     quantize + insert the new row and attend in one launch.
+
+Ring decode (``make_ring_round_callbacks``): each round's K/V rows go to a
+per-layer ring ``[B, R_pad, 2*Dk]`` (K columns first) instead of the pool;
+a kernel computes the page partial over positions < ring_start (pool
+read-only), ``merge_ring_partial`` folds in the ring's rows, and the ring
+lands in the pages once per burst (ops/ring_flush.py).
 """
 
 from __future__ import annotations
@@ -26,7 +32,9 @@ import torch
 
 from ..config import EngineConfig, ModelConfig, resolve_device
 from ..ops.indexing import index_set_drop_
+from ..ops.paged_attention_dgrid import dgrid_paged_partial
 from ..ops.paged_attention_grouped import paged_decode_attention_grouped
+from ..ops.prefill_scatter import prefill_quant_scatter
 from ..ops.quant import (
     dequantize_rows,
     inv_scale,
@@ -37,7 +45,9 @@ from ..ops.quant import (
     unpack_int4,
     update_page_scales,
 )
-from ..ops.reference import masked_attention
+from ..ops.reference import inv_sqrt, masked_attention
+
+_TINY = torch.finfo(torch.float32).tiny
 
 
 class PagedKVState(NamedTuple):
@@ -186,8 +196,9 @@ def make_prefill_kv_writer(
     [P, D] window (rows past the prompt carry garbage that every consumer
     masks by length). Otherwise rows scatter one by one.
 
-    int8 pools take the plain quantize + window scatter: the JAX package
-    makes its fused prefill kernel bit-identical to exactly this path.
+    int8 pools with a page-multiple block take the fused quantize + page
+    scatter (ops/prefill_scatter.py), bit-identical to the plain quantize +
+    window scatter that int4 pools take.
 
     Returns (write_kv_block, finalize); finalize() -> the PagedKVState."""
     kv_pages = list(state.kv_pages)
@@ -240,6 +251,12 @@ def make_prefill_kv_writer(
                            qmax)
         update_page_scales(v_scales[li], v[:, ::P].reshape(-1, D), fresh_pid,
                            qmax)
+        if paged_write and not packed:
+            prefill_quant_scatter(
+                kv_pages[li], k, v, pid,
+                inv_scale(k_scales[li][safe_pid.long()]),
+                inv_scale(v_scales[li][safe_pid.long()]))
+            return
         if paged_write:
             qk = _quantize_block_per_page(k, k_scales[li], safe_pid, P, qmax)
             qv = _quantize_block_per_page(v, v_scales[li], safe_pid, P, qmax)
@@ -273,6 +290,158 @@ def torch_paged_attend(pool, ks, vs, q, lengths, page_table, page_size,
         kctx = dequantize_rows(kctx, gather_scales(ks, page_table, page_size))
         vctx = dequantize_rows(vctx, gather_scales(vs, page_table, page_size))
     return masked_attention(q, kctx, vctx, lengths, n_heads)
+
+
+def torch_paged_partial(pool, ks, vs, q, ring_start, lengths, page_table,
+                        page_size, n_heads):
+    """The gather-based (oracle) page partial of ring decode: the
+    online-softmax state of q over each live slot's page positions <
+    ring_start, as (o [B, D] normalized, m [B, H], l [B, H]) in float32.
+    Scores are (q . K) / sqrt(dh) * k_scale and probabilities take v_scale
+    before PV, the order of the JAX kernels. Rows with no such position
+    (dead slots, ring_start == 0) are o = 0, m = -inf, l = 0."""
+    kctx, vctx = gather_kv_context(pool, page_table, page_size)
+    B, D = q.shape
+    if pool.shape[-1] * 2 == D:
+        kctx = unpack_int4(kctx, n_heads)
+        vctx = unpack_int4(vctx, n_heads)
+    L = kctx.shape[1]
+    dh = D // n_heads
+    pos = torch.arange(L, device=q.device)
+    valid = (pos[None, :] < ring_start[:, None]) & (lengths > 0)[:, None]
+    qh = q.float().reshape(B, n_heads, dh)
+    kh = kctx.float().reshape(B, L, n_heads, dh)
+    # masked rows may hold anything a dead or stale page held
+    vh = torch.where(valid[:, :, None], vctx.float(), 0.0)
+    vh = vh.reshape(B, L, n_heads, dh)
+    s = torch.einsum("bhd,blhd->bhl", qh, kh) * inv_sqrt(dh)
+    if ks is not None:
+        s = s * gather_scales(ks, page_table, page_size)[:, None, :]
+    vmask = valid[:, None, :]
+    m = torch.where(vmask, s, float("-inf")).amax(dim=-1)
+    safe_m = torch.where(torch.isinf(m), 0.0, m)
+    p = torch.where(vmask, torch.exp(s - safe_m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    if vs is not None:
+        p = p * gather_scales(vs, page_table, page_size)[:, None, :]
+    o = torch.einsum("bhl,blhd->bhd", p, vh) / l.clamp_min(_TINY)[..., None]
+    return o.reshape(B, D), m, l
+
+
+def ring_pad_rows(n_forward_rounds: int) -> int:
+    """Ring rows: one per decode round, padded to a multiple of 8 (the JAX
+    ring's tile rule, kept so the two rings have one shape)."""
+    return max(8, -(-n_forward_rounds // 8) * 8)
+
+
+def pack_ring_for_flush(ring, n_heads: int):
+    """[B, R, 2*D] unpacked int4-value ring -> [B, R, D] packed (two
+    nibbles per byte, per-head halves) for the page flush, once per
+    burst."""
+    B, R, two_d = ring.shape
+    D = two_d // 2
+    qk = pack_int4_rows(ring[:, :, :D].reshape(B * R, D), n_heads)
+    qv = pack_int4_rows(ring[:, :, D:].reshape(B * R, D), n_heads)
+    return torch.cat([qk.reshape(B, R, D // 2), qv.reshape(B, R, D // 2)],
+                     dim=-1)
+
+
+def merge_ring_partial(o_p, m_p, l_p, q, ring, ring_sc, ring_start, lens,
+                       heads, packed, ring_r0=None):
+    """Merge the page partial (o_p [B, D] normalized, m_p/l_p [B, H]) with
+    the ring's contribution: a two-block flash merge of normalized
+    partials, over the same dequantized values as the scatter paths.
+
+    Ring column r holds position ring_start + (r - r0), valid inside the
+    length and only from the occupant's first column r0 on (ring_r0 None:
+    r0 = 0). ring_sc [B, 128]: column r is row r's K scale, 64 + r its V
+    scale."""
+    B = q.shape[0]
+    dh = q.shape[1] // heads
+    R = ring.shape[1]
+    Dk = ring.shape[2] // 2
+    kq, vq = ring[:, :, :Dk], ring[:, :, Dk:]
+    if packed:
+        kd, vd = unpack_int4(kq, heads), unpack_int4(vq, heads)
+    else:
+        kd, vd = kq.float(), vq.float()
+    if ring_sc is not None:
+        kd = kd * ring_sc[:, :R, None]
+        vsc = ring_sc[:, 64:64 + R]
+    qh = q.float().reshape(B, heads, dh)
+    kh = kd.reshape(B, R, heads, dh)
+    vh = vd.reshape(B, R, heads, dh)
+    s = torch.einsum("brhd,bhd->bhr", kh, qh) * inv_sqrt(dh)
+    col = torch.arange(R, dtype=torch.int32, device=q.device)[None, None, :]
+    rs = ring_start[:, None, None]
+    if ring_r0 is None:
+        valid = (rs + col) < lens[:, None, None]
+    else:
+        r0b = ring_r0[:, None, None]
+        valid = (col >= r0b) & ((rs - r0b + col) < lens[:, None, None])
+    m_r = torch.where(valid, s, float("-inf")).amax(dim=-1)
+    w = torch.where(valid, torch.exp(s - m_r[..., None]), 0.0)
+    l_r = w.sum(dim=-1)
+    if ring_sc is not None:
+        w = w * vsc[:, None, :]
+    o_r = torch.einsum("bhr,brhd->bhd", w, vh)
+    o_r = o_r / l_r.clamp_min(_TINY)[..., None]
+    m = torch.maximum(m_p, m_r)
+
+    def coef(m_x, l_x):
+        return torch.where(torch.isinf(m_x) & (m_x < 0), 0.0,
+                           torch.exp(m_x - m)) * l_x
+
+    a, b = coef(m_p, l_p), coef(m_r, l_r)
+    out = (a[..., None] * o_p.reshape(B, heads, dh) + b[..., None] * o_r
+           ) / (a + b).clamp_min(_TINY)[..., None]
+    return out.reshape(B, heads * dh)
+
+
+def flush_ring_to_pages(pool, ring, ring_start, lengths, n_rounds,
+                        page_table, page_size, n_pages, ring_r0=None):
+    """The oracle of the ring flush, in place: gather both candidate pages
+    of each slot, merge its valid ring rows, window-scatter them back.
+
+    A live slot's valid ring rows r in [r0, r0 + min(length - ring_start,
+    n_rounds - r0)) hold positions ring_start + (r - r0), spanning at most
+    two pages (n_rounds <= page_size). Slots dead at flush time are
+    dropped: their pages are freed at the next burst start and re-prefilled
+    before anything reads them. Returns pool."""
+    B, R, two_dk = ring.shape
+    Dk = two_dk // 2
+    NP_, _, P, _ = pool.shape
+    W = page_table.shape[1]
+    dev = pool.device
+    live = lengths > 0
+    r0 = (torch.zeros_like(ring_start) if ring_r0 is None
+          else ring_r0.to(ring_start.dtype))
+    nv = torch.where(live, torch.minimum(lengths - ring_start, n_rounds - r0),
+                     0)
+    p0 = torch.div(ring_start.clamp_min(0), P, rounding_mode="floor")
+    cand = p0[:, None] + torch.arange(2, dtype=p0.dtype, device=dev)[None, :]
+    cand_ok = (live[:, None] & (cand * P < (ring_start + nv)[:, None])
+               & (cand < W))
+    pid = torch.gather(page_table, 1, cand.clamp(0, W - 1).long())
+    flat = pool.view(NP_ * 2, P, Dk)
+    win = pid.clamp(0, NP_ - 1).long() * 2
+    cur_k, cur_v = flat[win], flat[win + 1]                  # [B, 2, P, Dk]
+    prow = torch.arange(P, dtype=p0.dtype, device=dev)[None, None, :]
+    r = cand[:, :, None] * P + prow - ring_start[:, None, None]  # [B, 2, P]
+    use = (r >= 0) & (r < nv[:, None, None])
+    rc = (r + r0[:, None, None]).clamp(0, R - 1).reshape(B, 2 * P, 1).long()
+
+    def merge(cur, side):
+        rows = torch.gather(ring[:, :, side * Dk:(side + 1) * Dk], 1,
+                            rc.expand(B, 2 * P, Dk)).reshape(B, 2, P, Dk)
+        return torch.where(use[..., None], rows, cur)
+
+    idx = torch.cat([torch.where(cand_ok, pid * 2, 2 * NP_).reshape(-1),
+                     torch.where(cand_ok, pid * 2 + 1, 2 * NP_).reshape(-1)])
+    vals = torch.cat([merge(cur_k, 0).reshape(-1, P, Dk),
+                      merge(cur_v, 1).reshape(-1, P, Dk)])
+    index_set_drop_(flat, idx, vals)
+    return pool
 
 
 def make_round_kv_callbacks(
@@ -333,5 +502,80 @@ def make_round_kv_callbacks(
     def attend(li, q, lens):
         return torch_paged_attend(kv_pages[li], k_scales[li], v_scales[li],
                                   q, lens, page_table, P, heads)
+
+    return write_kv, attend
+
+
+def make_ring_round_callbacks(
+    model_cfg: ModelConfig,
+    engine_cfg: EngineConfig,
+    page_table,
+    kv_pages: list,
+    k_scales: list,
+    v_scales: list,
+    rings: list,      # per-layer [B, R, 2*Dk], written in place
+    ring_scs: list,   # per-layer [B, 128] f32 scale columns (quantized only)
+    lengths,
+    ring_start,       # [B] i32, pages hold positions < ring_start
+    round_idx: int,   # ring column written this round
+    ring_r0=None,
+    n_heads=None,
+):
+    """Ring-mode (write_kv, attend) for ONE decode round of a burst, over
+    full-grant page-group rows.
+
+    write_kv quantizes the K|V row in plain PyTorch against its page's
+    (just updated) scale, records the scale in the [B, 128] column buffer
+    (column r = K, 64 + r = V) and writes ring column ``round_idx``; int4
+    rows stay unpacked (the flush packs them once per burst). attend takes
+    the page partial from ``dgrid_paged_partial`` (``attn_dgrid``) or the
+    grouped kernel's mode (c), both reading the pool read-only, and merges
+    the ring's rows into it. ``ring_r0`` [B] i32: the first valid ring
+    column per slot (None = 0)."""
+    P = engine_cfg.page_size
+    NP = engine_cfg.n_pages
+    heads = n_heads or model_cfg.n_heads
+    live = lengths > 0
+    pos = torch.clamp_min(lengths - 1, 0)
+    fresh_pid = decode_fresh_pid(page_table, pos, live, P, NP)
+    quantized = engine_cfg.kv_quantized
+    qmax = kv_qmax(engine_cfg.kv_packed)
+    if quantized:
+        flat_idx = _flat_scatter_indices(page_table, pos, live, P, NP)
+        pidr = torch.div(flat_idx, P, rounding_mode="floor").clamp(
+            0, NP - 1).long()
+
+    def write_kv(li, pos_, k, v, live_):
+        if quantized:
+            update_page_scales(k_scales[li], k, fresh_pid, qmax)
+            update_page_scales(v_scales[li], v, fresh_pid, qmax)
+            sk, sv = k_scales[li][pidr], v_scales[li][pidr]
+            qk = quantize_against(k, inv_scale(sk)[:, None], qmax)
+            qv = quantize_against(v, inv_scale(sv)[:, None], qmax)
+            ring_scs[li][:, round_idx] = sk
+            ring_scs[li][:, 64 + round_idx] = sv
+        else:
+            qk, qv = k, v
+        Dk = qk.shape[-1]
+        rings[li][:, round_idx, :Dk] = qk
+        rings[li][:, round_idx, Dk:] = qv
+
+    def attend(li, q, lens):
+        ks = k_scales[li] if quantized else None
+        vs = v_scales[li] if quantized else None
+        if engine_cfg.attn_dgrid:
+            o_p, m_p, l_p = dgrid_paged_partial(
+                q, kv_pages[li], ks, vs, ring_start, lens, page_table,
+                n_heads=heads, page_size=P)
+        else:
+            o_p, m_p, l_p = paged_decode_attention_grouped(
+                q, kv_pages[li], lens, page_table, ks, vs,
+                ring_start=ring_start, n_heads=heads,
+                packed_int4=engine_cfg.kv_packed)
+        # the ring rides unpacked even for int4 pools: packed=False
+        return merge_ring_partial(
+            o_p, m_p, l_p, q, rings[li], ring_scs[li] if quantized else None,
+            ring_start, lens, heads, False, ring_r0=ring_r0,
+        ).to(q.dtype)
 
     return write_kv, attend

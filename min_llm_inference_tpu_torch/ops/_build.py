@@ -24,7 +24,10 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("paged_attention_grouped.cu",)
+SOURCES = ("paged_attention_grouped.cu", "paged_attention_dgrid.cu",
+           "ring_flush.cu", "prefill_scatter.cu")
+# dynamic shared memory a block may use on Hopper (227 KB)
+MAX_SMEM = 232448
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -86,6 +89,27 @@ def load(source: str) -> ctypes.CDLL:
     """The library of one source, built first if needed."""
     build((source,))
     return ctypes.CDLL(library_path(source))
+
+
+def check_rows(name, t, B, D, dtype, device) -> None:
+    """Raise unless t is a [B, D] ``dtype`` tensor on ``device`` with unit
+    inner stride (a column slice of a wider projection is fine)."""
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype} on {device}, got "
+                         f"{t.dtype} on {t.device}")
+    if t.dim() != 2 or tuple(t.shape) != (B, D) or t.stride(1) != 1:
+        raise ValueError(f"{name} must be [{B}, {D}] with unit inner stride")
+
+
+def check_contig(name, t, shape, dtype, device) -> None:
+    """Raise unless t is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``."""
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype} on {device}, got "
+                         f"{t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

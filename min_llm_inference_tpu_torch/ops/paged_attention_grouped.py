@@ -1,10 +1,10 @@
-"""Paged decode attention with the fused KV write: the wrapper of the
-hand-written Hopper kernel ``csrc/paged_attention_grouped.cu`` and its plain
-PyTorch version.
+"""Paged decode attention with the fused KV write, and the ring partial:
+the wrapper of the hand-written Hopper kernel
+``csrc/paged_attention_grouped.cu`` and its plain PyTorch version.
 
 Counterpart of min_llm_inference_tpu/ops/paged_attention_grouped.py
-(the Pallas TPU kernel) in its modes (a) plain and (b) fused write; mode
-(c), the ring partial, waits for the ring-decode port.
+(the Pallas TPU kernel) in its three modes: (a) plain, (b) fused write,
+(c) ring partial.
 
 The wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; it never falls back.
@@ -18,14 +18,13 @@ import functools
 import torch
 
 from . import _build
+from ._build import check_contig, check_rows
 from .quant import kv_qmax, pack_int4_rows, quantize_rows_against_pages
 from .reference import inv_sqrt
 
 _SOURCE = "paged_attention_grouped.cu"
 _POOL_KINDS = {torch.float32: 0, torch.int8: 1}
 _IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# dynamic shared memory a block may use on Hopper (227 KB)
-_MAX_SMEM = 232448
 
 
 def paged_decode_attention_grouped(
@@ -38,6 +37,7 @@ def paged_decode_attention_grouped(
     k_new=None,   # [B, D] raw new-token K rows -> fused write at lengths-1
     v_new=None,
     *,
+    ring_start=None,  # [B] int32 -> mode (c): pages hold positions < it
     n_heads: int = 1,
     packed_int4: bool = False,
 ):
@@ -45,18 +45,28 @@ def paged_decode_attention_grouped(
     f32 ``[B, D]`` (exact zeros for dead slots). With ``k_new``/``v_new``
     the new rows are first quantized against the ALREADY UPDATED page
     scales, packed for int4, and written in place at position lengths-1;
-    the call then returns ``(o, kv_pages)``, the row included in o."""
+    the call then returns ``(o, kv_pages)``, the row included in o.
+
+    Mode (c), ``ring_start`` given (never with ``k_new``): the pool is
+    read-only and holds positions < ring_start; the call returns the
+    online-softmax partial ``(o [B, D] normalized, m [B, H], l [B, H])``
+    over them, f32, for merge_ring_partial. Rows without such a position
+    (dead slots, ring_start == 0) are o = 0, m = -inf, l = 0."""
     if (k_new is None) != (v_new is None):
         raise ValueError("k_new and v_new go together")
+    if ring_start is not None and k_new is not None:
+        raise ValueError("the ring partial (ring_start) replaces the fused "
+                         "write (k_new/v_new)")
     if q.device.type == "cpu":
         return paged_decode_attention_grouped_plain(
             q, kv_pages, lengths, page_table, k_scales, v_scales, k_new,
-            v_new, n_heads=n_heads, packed_int4=packed_int4,
+            v_new, ring_start=ring_start, n_heads=n_heads,
+            packed_int4=packed_int4,
         )
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     return _launch(q, kv_pages, lengths, page_table, k_scales, v_scales,
-                   k_new, v_new, n_heads, packed_int4)
+                   k_new, v_new, ring_start, n_heads, packed_int4)
 
 
 # kernel launches since the last reset (launches made by the wrapper only)
@@ -65,14 +75,20 @@ paged_decode_attention_grouped.launches = 0
 
 def paged_decode_attention_grouped_plain(
     q, kv_pages, lengths, page_table, k_scales=None, v_scales=None,
-    k_new=None, v_new=None, *, n_heads: int = 1, packed_int4: bool = False,
+    k_new=None, v_new=None, *, ring_start=None, n_heads: int = 1,
+    packed_int4: bool = False,
 ):
     """The plain version: quantize + pack + scatter of the new rows at
-    lengths-1 (pool written in place), then the gather oracle."""
+    lengths-1 (pool written in place), then the gather oracle; in mode (c)
+    the gather oracle of the page partial."""
     from ..models.paged import _flat_scatter_indices, _scatter_kv
-    from ..models.paged import torch_paged_attend
+    from ..models.paged import torch_paged_attend, torch_paged_partial
 
     NP, _, P, _ = kv_pages.shape
+    if ring_start is not None:
+        return torch_paged_partial(kv_pages, k_scales, v_scales, q,
+                                   ring_start, lengths, page_table, P,
+                                   n_heads)
     if k_new is not None:
         pos = torch.clamp_min(lengths - 1, 0)
         flat_idx = _flat_scatter_indices(page_table, pos, lengths > 0, P, NP)
@@ -96,7 +112,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     lib.mli_grouped_attention.argtypes = [
-        vp, ll, vp, vp, vp, vp, vp, vp, ll, vp, ll, vp,
+        vp, ll, vp, vp, vp, vp, vp, vp, ll, vp, ll, vp, vp, vp, vp,
         i, i, i, i, i, i, i, i, i, f, vp,
     ]
     lib.mli_grouped_attention.restype = ctypes.c_int
@@ -107,25 +123,8 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_rows(name, t, B, D, dtype, device):
-    if t.device != device or t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype} on {device}, got "
-                         f"{t.dtype} on {t.device}")
-    if t.dim() != 2 or tuple(t.shape) != (B, D) or t.stride(1) != 1:
-        raise ValueError(f"{name} must be [{B}, {D}] with unit inner stride")
-
-
-def _check_contig(name, t, shape, dtype, device):
-    if t.device != device or t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype} on {device}, got "
-                         f"{t.dtype} on {t.device}")
-    if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-
-
 def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, k_new,
-            v_new, n_heads, packed_int4):
+            v_new, ring_start, n_heads, packed_int4):
     dev = q.device
     if q.dim() != 2 or kv_pages.dim() != 4:
         raise ValueError("q must be [B, D] and kv_pages [NP, 2, P, Dk]")
@@ -145,17 +144,20 @@ def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, k_new,
     if quantized != (k_scales is not None) or quantized != (v_scales is not None):
         raise ValueError("int8/int4 pools need k_scales and v_scales, float "
                          "pools take none")
-    _check_rows("q", q, B, D, q.dtype, dev)
-    _check_contig("kv_pages", kv_pages, (NP, 2, P, Dk), kv_pages.dtype, dev)
-    _check_contig("lengths", lengths, (B,), torch.int32, dev)
-    _check_contig("page_table", page_table, (B, W), torch.int32, dev)
+    check_rows("q", q, B, D, q.dtype, dev)
+    check_contig("kv_pages", kv_pages, (NP, 2, P, Dk), kv_pages.dtype, dev)
+    check_contig("lengths", lengths, (B,), torch.int32, dev)
+    check_contig("page_table", page_table, (B, W), torch.int32, dev)
     if quantized:
-        _check_contig("k_scales", k_scales, (NP,), torch.float32, dev)
-        _check_contig("v_scales", v_scales, (NP,), torch.float32, dev)
+        check_contig("k_scales", k_scales, (NP,), torch.float32, dev)
+        check_contig("v_scales", v_scales, (NP,), torch.float32, dev)
     fused = k_new is not None
     if fused:
-        _check_rows("k_new", k_new, B, D, q.dtype, dev)
-        _check_rows("v_new", v_new, B, D, q.dtype, dev)
+        check_rows("k_new", k_new, B, D, q.dtype, dev)
+        check_rows("v_new", v_new, B, D, q.dtype, dev)
+    ring = ring_start is not None
+    if ring:
+        check_contig("ring_start", ring_start, (B,), torch.int32, dev)
     pool_kind = 2 if packed_int4 else _POOL_KINDS[kv_pages.dtype]
     # 4-element loads need every head's row segment and the pool base
     # 4-element aligned (16 B for float32, 4 B for int8)
@@ -164,10 +166,13 @@ def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, k_new,
                 and kv_pages.data_ptr() % align == 0) else 1
     lib = _library()
     smem = lib.mli_grouped_attention_smem(D, n_heads, W, P, pool_kind)
-    if smem > _MAX_SMEM:
+    if smem > _build.MAX_SMEM:
         raise ValueError(f"kernel needs {smem} B of shared memory (> "
-                         f"{_MAX_SMEM}): context W*P={W * P} too long")
+                         f"{_build.MAX_SMEM}): context W*P={W * P} too long")
     out = torch.empty((B, D), dtype=torch.float32, device=dev)
+    if ring:
+        m = torch.empty((B, n_heads), dtype=torch.float32, device=dev)
+        l = torch.empty((B, n_heads), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mli_grouped_attention(
@@ -179,9 +184,15 @@ def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, k_new,
             k_new.stride(0) if fused else 0,
             v_new.data_ptr() if fused else None,
             v_new.stride(0) if fused else 0,
-            out.data_ptr(), B, D, NP, P, W, n_heads, pool_kind,
+            out.data_ptr(),
+            ring_start.data_ptr() if ring else None,
+            m.data_ptr() if ring else None,
+            l.data_ptr() if ring else None,
+            B, D, NP, P, W, n_heads, pool_kind,
             _IN_DTYPES[q.dtype], vec, inv_sqrt(D // n_heads), stream,
         )
     _build.check(lib, rc, "paged_decode_attention_grouped kernel")
     paged_decode_attention_grouped.launches += 1
+    if ring:
+        return out, m, l
     return (out, kv_pages) if fused else out

@@ -9,13 +9,22 @@ decode and scatters the tokens into a device-resident output buffer. The
 host reads a 5-int status once per chunk of bursts and the outputs once at
 the end.
 
+Ring decode (``decode_ring`` on the ``grouped`` path): each round's K/V
+rows go to a per-layer ring instead of the pool; the pool is read-only
+during the rounds and the ring is flushed into the pages once per
+sub-burst, or once per burst when ``burst_flush`` carries one ring across
+``subbursts > 1`` (ring columns then index the absolute round and
+``ring_r0`` marks each admittee's first column). ``sort_admits`` orders
+each admitted wave by prompt length before slots and groups are assigned.
+
 Host reads inside a burst (each one scalar): the whole-burst liveness gate
 (JAX: ``lax.cond``) and, per sub-burst, the admitted count that picks the
-prefill bucket (JAX: ``lax.switch``). Nothing else in a burst syncs;
-``BurstStats.host_syncs`` counts every sync of a run.
+prefill bucket (JAX: ``lax.switch``). Nothing else in a burst syncs (the
+ring, its flush and the sort included); ``BurstStats.host_syncs`` counts
+every sync of a run.
 
-Not ported yet (raise NotImplementedError): overcommit, ring decode,
-sort_admits, sampling, and StreamingSession.
+Not ported yet (raise NotImplementedError): overcommit, the dense and flat
+ring formulations (attn_dense, attn_flat), sampling, and StreamingSession.
 """
 
 from __future__ import annotations
@@ -33,10 +42,14 @@ from ..models.paged import (
     PagedKVState,
     init_paged_state,
     make_prefill_kv_writer,
+    make_ring_round_callbacks,
     make_round_kv_callbacks,
+    pack_ring_for_flush,
+    ring_pad_rows,
 )
 from ..models.params import fuse_qkv_params
 from ..ops.indexing import index_set_drop_
+from ..ops.ring_flush import ring_flush
 from ..utils.profiling import phase
 from .item_storage import ItemStorage, Request
 
@@ -60,12 +73,14 @@ class AutoState(NamedTuple):
 @dataclasses.dataclass
 class BurstStats:
     """What the engine did: bursts dispatched, bursts the liveness gate
-    skipped, decode rounds executed, and host syncs (the host waiting on the
-    device: scalar and output reads, and the run's two input uploads)."""
+    skipped, decode rounds executed, prefill blocks run (one per sub-burst
+    that admitted), and host syncs (the host waiting on the device: scalar
+    and output reads, and the run's two input uploads)."""
 
     bursts: int = 0
     skipped: int = 0
     rounds: int = 0
+    prefills: int = 0
     host_syncs: int = 0
 
 
@@ -74,11 +89,10 @@ def _check_supported(engine_cfg: EngineConfig, attention_impl: str) -> None:
         raise ValueError(f"unknown attention_impl {attention_impl!r}")
     if engine_cfg.overcommit:
         raise NotImplementedError("overcommit is not ported yet")
-    if engine_cfg.decode_ring and attention_impl == "grouped":
+    if engine_cfg.attn_dense or engine_cfg.attn_flat:
         raise NotImplementedError(
-            "ring decode is not ported yet: set decode_ring=False")
-    if engine_cfg.sort_admits:
-        raise NotImplementedError("sort_admits is not ported yet")
+            "the attn_dense and attn_flat ring formulations are not ported "
+            "yet (attn_dgrid and the grouped kernel are)")
 
 
 def init_auto_state(model_cfg: ModelConfig, engine_cfg: EngineConfig,
@@ -125,10 +139,32 @@ def _status_of(st: AutoState):
     ])
 
 
+def _new_rings(model_cfg: ModelConfig, engine_cfg: EngineConfig, dev,
+               n_rounds: int):
+    """Zeroed per-layer rings [B, R_pad, 2*D] (int4 rows ride unpacked,
+    one int8 per feature) and, for quantized pools, [B, 128] f32 scale
+    columns."""
+    B = engine_cfg.n_slots
+    shape = (B, ring_pad_rows(n_rounds), 2 * model_cfg.emb_dim)
+    L = model_cfg.n_layers
+    rings = [torch.zeros(shape, dtype=engine_cfg.kv_torch_dtype, device=dev)
+             for _ in range(L)]
+    scs = ([torch.zeros((B, 128), dtype=torch.float32, device=dev)
+            for _ in range(L)] if engine_cfg.kv_quantized else [None] * L)
+    return rings, scs
+
+
 def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
                attention_impl: str, max_new: int, ctx, R: int,
+               round_offset: int, ring_ctx, do_flush: bool,
                stats: BurstStats, params, st: AutoState, prompts_all,
                plens_all, n_real: int):
+    """One admit -> prefill -> R decode rounds. ``ring_ctx`` (rings, scale
+    columns, ring_start, ring_r0) is the burst-wide ring threaded across
+    sub-bursts, or None (a fresh ring per sub-burst when ring decode is on);
+    ``round_offset`` is the absolute round of this sub-burst's first round
+    and ``do_flush`` lands the ring in the pages at its end. Returns (state,
+    status, ring_ctx)."""
     dev = st.lengths.device
     B = engine_cfg.n_slots
     W = st.page_table.shape[1]
@@ -161,6 +197,13 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     req_ix = st.queue_head + j
     req_row = (req_ix % R_total).long()
     plens = torch.where(admit, plens_all[req_row], 0)
+    if engine_cfg.sort_admits:
+        # the admitted wave in prompt-length order (stable): the admitted
+        # set and the queue advance are unchanged; slots and groups are
+        # assigned in that order (greedy outputs do not depend on them)
+        order = torch.sort(torch.where(admit, plens, 1 << 30),
+                           stable=True).indices
+        req_ix, req_row, plens = req_ix[order], req_row[order], plens[order]
     prompts = prompts_all[req_row]                      # [max_new, S_pre]
     # the j-th admitted request pops page_stack[free_top - 1 - j]
     gids = page_stack[(free_top - 1 - j).clamp(0, NG - 1).long()]
@@ -179,31 +222,56 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     # ---- 3. prefill the admitted prompts over the smallest bucket of rows
     # that holds them (the first m rows of the max_new block) ----
     kv = st.kv
+    heads = ctx.local_heads(model_cfg)
     sizes = [s for s in (64, 128, 256) if s < max_new] + [max_new]
     n_adm = int(m)
     stats.host_syncs += 1
     bs = next((s for s in sizes if n_adm <= s), None) if n_adm else None
     if bs is not None:
         write_kv_block, _ = make_prefill_kv_writer(
-            kv, granted[:bs], plens[:bs], S_pre, P, NP,
-            n_heads=ctx.local_heads(model_cfg),
-        )
+            kv, granted[:bs], plens[:bs], S_pre, P, NP, n_heads=heads)
         prefill_write_kv(params, model_cfg, prompts[:bs], plens[:bs],
                          write_kv_block, ctx)
+        stats.prefills += 1
 
     # ---- 4. decode rounds; the tokens scatter into the output buffers once
     # per sub-burst ----
+    # Ring decode: ring_start = the first position this (sub-)burst
+    # computes (burst-start length - 1, or the last prompt token of an
+    # admittee, whose page row the flush rewrites with the bytes prefill
+    # wrote). The pools stay read-only until the flush.
+    use_ring = engine_cfg.decode_ring and attention_impl == "grouped"
+    if ring_ctx is not None:
+        # burst-wide ring: this sub-burst's admittees start at its first
+        # absolute round; earlier columns held a previous occupant's rows
+        rings, ring_scs, ring_start, ring_r0 = ring_ctx
+        ring_start = index_set_drop_(ring_start.clone(), slot_ids,
+                                     torch.clamp_min(plens - 1, 0))
+        ring_r0 = index_set_drop_(ring_r0.clone(), slot_ids,
+                                  torch.full_like(plens, round_offset))
+        flush_rounds = engine_cfg.n_forward_rounds
+        col_base = round_offset
+    elif use_ring:
+        rings, ring_scs = _new_rings(model_cfg, engine_cfg, dev, R)
+        ring_start = torch.clamp_min(lengths - 1, 0)
+        ring_r0 = None
+        flush_rounds = R
+        col_base = 0
     kv_pages, k_scales, v_scales = (list(kv.kv_pages), list(kv.k_scales),
                                     list(kv.v_scales))
     row = rid % R_total
     toks, out_idx, fin_rid, fin_len = [], [], [], []
-    for _ in range(R):
+    for r in range(R):
         live = lengths > 0
-        write_kv, attend = make_round_kv_callbacks(
-            model_cfg, engine_cfg, attention_impl, page_table,
-            kv_pages, k_scales, v_scales, lengths,
-            n_heads=ctx.local_heads(model_cfg),
-        )
+        if use_ring:
+            write_kv, attend = make_ring_round_callbacks(
+                model_cfg, engine_cfg, page_table, kv_pages, k_scales,
+                v_scales, rings, ring_scs, lengths, ring_start, col_base + r,
+                ring_r0=ring_r0, n_heads=heads)
+        else:
+            write_kv, attend = make_round_kv_callbacks(
+                model_cfg, engine_cfg, attention_impl, page_table,
+                kv_pages, k_scales, v_scales, lengths, n_heads=heads)
         tok, new_lengths = decode_round_tokens(
             params, model_cfg, lengths, last_tokens, write_kv, attend, ctx)
         # the emitted token's position in its sequence is the old length
@@ -214,6 +282,12 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
         last_tokens = torch.where(live, tok, last_tokens)
         lengths = new_lengths
     stats.rounds += R
+    if use_ring and do_flush:
+        for pool, rg in zip(kv_pages, rings):
+            if engine_cfg.kv_packed:
+                rg = pack_ring_for_flush(rg, heads)
+            ring_flush(pool, rg, ring_start, lengths, page_table,
+                       n_rounds=flush_rounds, ring_r0=ring_r0)
     index_set_drop_(st.out_tokens.view(-1), torch.cat(out_idx),
                     torch.cat(toks))
     index_set_drop_(st.final_lens, torch.cat(fin_rid), torch.cat(fin_len))
@@ -221,7 +295,9 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     new_st = AutoState(kv, page_table, lengths, last_tokens, rid, allocated,
                        queue_head, free_top, page_stack, st.out_tokens,
                        st.final_lens)
-    return new_st, _status_of(new_st)
+    ring_ctx_out = (None if ring_ctx is None
+                    else (rings, ring_scs, ring_start, ring_r0))
+    return new_st, _status_of(new_st), ring_ctx_out
 
 
 def _autonomous_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
@@ -232,18 +308,34 @@ def _autonomous_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     (n_forward_rounds / subbursts rounds each), so dead slots refill every
     R/subbursts rounds while the host pays one status read per chunk. One
     liveness gate covers the whole burst: with no live slot and nothing
-    queued the burst costs one scalar read and changes nothing."""
+    queued the burst costs one scalar read and changes nothing.
+
+    With ring decode, ``burst_flush`` and ``subbursts > 1``, one ring sized
+    for the whole burst rides across the sub-bursts and is flushed once at
+    burst end; otherwise each sub-burst flushes its own ring."""
     stats.bursts += 1
     go = bool(((st.lengths > 0).any() | (st.queue_head < n_real)).item())
     stats.host_syncs += 1
     if not go:
         stats.skipped += 1
         return st, _status_of(st)
-    r_sub = engine_cfg.n_forward_rounds // engine_cfg.subbursts
+    n_sub = engine_cfg.subbursts
+    r_sub = engine_cfg.n_forward_rounds // n_sub
+    use_ring = engine_cfg.decode_ring and attention_impl == "grouped"
+    burst_ring = use_ring and engine_cfg.burst_flush and n_sub > 1
+    ring_ctx = None
+    if burst_ring:
+        rings, ring_scs = _new_rings(model_cfg, engine_cfg, st.lengths.device,
+                                     engine_cfg.n_forward_rounds)
+        # slots live at burst start: first new position = length - 1,
+        # first ring column 0; admissions overwrite their entries
+        ring_ctx = (rings, ring_scs, torch.clamp_min(st.lengths - 1, 0),
+                    torch.zeros_like(st.lengths))
     status = None
-    for _ in range(engine_cfg.subbursts):
-        st, status = _sub_burst(
+    for k in range(n_sub):
+        st, status, ring_ctx = _sub_burst(
             model_cfg, engine_cfg, attention_impl, max_new, ctx, r_sub,
+            k * r_sub, ring_ctx, (not burst_ring) or k == n_sub - 1,
             stats, params, st, prompts_all, plens_all, n_real,
         )
     return st, status

@@ -139,7 +139,8 @@ def test_entry_points_raise_without_a_gpu(params):
 
 
 @pytest.mark.parametrize("change", [
-    dict(overcommit=True), dict(decode_ring=True), dict(sort_admits=True),
+    dict(overcommit=True), dict(decode_ring=True, attn_dense=True),
+    dict(decode_ring=True, attn_flat=True),
 ])
 def test_unported_paths_raise(params, change):
     cfg = T.EngineConfig(n_slots=8, page_size=16, n_pages=32,

@@ -12,11 +12,23 @@ import pytest
 import torch
 
 from min_llm_inference_tpu_torch.models.paged import decode_fresh_pid
+from min_llm_inference_tpu_torch.ops.paged_attention_dgrid import (
+    dgrid_paged_partial,
+    dgrid_paged_partial_plain,
+)
 from min_llm_inference_tpu_torch.ops.paged_attention_grouped import (
     paged_decode_attention_grouped,
     paged_decode_attention_grouped_plain,
 )
+from min_llm_inference_tpu_torch.ops.prefill_scatter import (
+    prefill_quant_scatter,
+    prefill_quant_scatter_plain,
+)
 from min_llm_inference_tpu_torch.ops.quant import kv_qmax, update_page_scales
+from min_llm_inference_tpu_torch.ops.ring_flush import (
+    ring_flush,
+    ring_flush_plain,
+)
 
 
 @pytest.fixture
@@ -95,3 +107,149 @@ def test_grouped_kernel_rejects_unsupported_pool(cuda):
         paged_decode_attention_grouped(
             x["q"], x["pool"].to(torch.bfloat16), x["lengths"], x["table"],
             k_new=x["k_new"], v_new=x["v_new"])
+
+
+def partial_inputs(rng, dev, kv, B, W, P, D, in_dtype):
+    """Ring-partial inputs: full-grant group rows, ring_start covering 0 (a
+    live slot whose context is all in the ring), page boundaries and the
+    full width, dead slots with stale ring_start."""
+    NG = B + 2
+    NP = NG * W
+    packed = kv == "int4"
+    Dk = D // 2 if packed else D
+    gids = rng.permutation(NG)[:B]
+    table = (gids[:, None] * W + np.arange(W)[None, :]).astype(np.int32)
+    rs = rng.integers(0, W * P, B).astype(np.int32)
+    rs[:6] = [0, 1, P - 1, P, P + 1, W * P - 1]
+    lengths = np.minimum(rs + rng.integers(1, 8, B), W * P).astype(np.int32)
+    lengths[rng.random(B) < 0.1] = 0
+    lengths[6] = 0
+    if packed:
+        pool = (16 * rng.integers(-7, 8, (NP, 2, P, Dk))
+                + rng.integers(-7, 8, (NP, 2, P, Dk))).astype(np.int8)
+    elif kv == "int8":
+        pool = rng.integers(-127, 128, (NP, 2, P, Dk)).astype(np.int8)
+    else:
+        pool = rng.standard_normal((NP, 2, P, Dk)).astype(np.float32)
+    x = dict(q=torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32))
+             .to(dev, in_dtype),
+             pool=torch.from_numpy(pool).to(dev),
+             rs=torch.from_numpy(rs).to(dev),
+             lengths=torch.from_numpy(lengths).to(dev),
+             table=torch.from_numpy(table).to(dev), ks=None, vs=None)
+    if kv != "float32":
+        for side in ("ks", "vs"):
+            x[side] = torch.from_numpy(
+                rng.uniform(0.01, 0.1, NP).astype(np.float32)).to(dev)
+    return x
+
+
+def assert_partials_close(got, want, lengths, rs):
+    """o, m, l within 1e-4 * max(1, |x|) (float32 sums in another order);
+    empty rows (dead, ring_start == 0) exactly o = 0, m = -inf, l = 0."""
+    empty = (lengths == 0) | (rs == 0)
+    for g, w in zip(got, want):
+        g, w = g[~empty], w[~empty]
+        tol = 1e-4 * max(1.0, w.abs().max().item())
+        assert (g - w).abs().max().item() <= tol
+    o, m, l = got
+    assert torch.all(o[empty] == 0) and torch.all(l[empty] == 0)
+    assert torch.all(torch.isneginf(m[empty]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "int8", "int4"])
+@pytest.mark.parametrize("H,D,in_dtype", [(1, 64, torch.bfloat16),
+                                          (2, 64, torch.float32),
+                                          (12, 96, torch.bfloat16)])
+def test_grouped_mode_c_matches_plain(cuda, kv, H, D, in_dtype):
+    x = partial_inputs(np.random.default_rng(21), cuda, kv, 64, 4, 16, D,
+                       in_dtype)
+    kw = dict(ring_start=x["rs"], n_heads=H, packed_int4=kv == "int4")
+    args = (x["q"], x["pool"], x["lengths"], x["table"], x["ks"], x["vs"])
+    pool0 = x["pool"].clone()
+    before = paged_decode_attention_grouped.launches
+    got = paged_decode_attention_grouped(*args, **kw)
+    want = paged_decode_attention_grouped_plain(*args, **kw)
+    assert paged_decode_attention_grouped.launches == before + 1
+    assert torch.equal(x["pool"], pool0)          # read-only
+    assert_partials_close(got, want, x["lengths"], x["rs"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "int8"])
+@pytest.mark.parametrize("H,D,in_dtype", [(1, 64, torch.float32),
+                                          (4, 64, torch.bfloat16),
+                                          (12, 768, torch.bfloat16)])
+def test_dgrid_matches_plain(cuda, kv, H, D, in_dtype):
+    x = partial_inputs(np.random.default_rng(22), cuda, kv, 64, 4, 32, D,
+                       in_dtype)
+    args = (x["q"], x["pool"], x["ks"], x["vs"], x["rs"], x["lengths"],
+            x["table"])
+    before = dgrid_paged_partial.launches
+    got = dgrid_paged_partial(*args, n_heads=H, page_size=32)
+    want = dgrid_paged_partial_plain(*args, n_heads=H, page_size=32)
+    assert dgrid_paged_partial.launches == before + 1
+    assert_partials_close(got, want, x["lengths"], x["rs"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_r0", [False, True])
+@pytest.mark.parametrize("dtype,Dk", [(torch.int8, 768), (torch.float32, 32),
+                                      (torch.bfloat16, 24), (torch.int8, 5)])
+def test_ring_flush_matches_plain(cuda, dtype, Dk, with_r0):
+    """Pool bytes bit-identical, on 16-byte rows and on odd byte rows."""
+    rng = np.random.default_rng(23)
+    B, W, P, R, n_rounds = 61, 4, 16, 16, 12
+    NP = (B + 3) * W
+    table = rng.permutation(NP)[:B * W].reshape(B, W).astype(np.int32)
+    r0 = rng.integers(0, n_rounds, B).astype(np.int32)
+    rs = rng.integers(0, W * P - n_rounds, B).astype(np.int32)
+    lens = np.minimum(rs + rng.integers(1, n_rounds + 3, B), W * P)
+    lens[rng.random(B) < 0.15] = 0
+    pool = torch.from_numpy(rng.standard_normal((NP, 2, P, Dk)) * 50).to(
+        cuda, dtype)
+    ring = torch.from_numpy(rng.standard_normal((B, R, 2 * Dk)) * 50).to(
+        cuda, dtype)
+    args = (ring, torch.from_numpy(rs).to(cuda),
+            torch.from_numpy(lens.astype(np.int32)).to(cuda),
+            torch.from_numpy(table).to(cuda))
+    kw = dict(n_rounds=n_rounds,
+              ring_r0=torch.from_numpy(r0).to(cuda) if with_r0 else None)
+    pool_k, pool_p = pool.clone(), pool.clone()
+    before = ring_flush.launches
+    ring_flush(pool_k, *args, **kw)
+    ring_flush_plain(pool_p, *args, **kw)
+    assert ring_flush.launches == before + 1
+    assert torch.equal(pool_k.view(torch.uint8), pool_p.view(torch.uint8))
+    assert not torch.equal(pool_k, pool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dtype,D", [(torch.bfloat16, 768),
+                                        (torch.float32, 64),
+                                        (torch.bfloat16, 36)])
+def test_prefill_quant_scatter_matches_plain(cuda, in_dtype, D):
+    """Pool bytes bit-identical; k/v as column slices of one fused
+    projection, as the prefill passes them."""
+    rng = np.random.default_rng(24)
+    M, W_pre, P, NP = 40, 2, 32, 128
+    kv = torch.from_numpy(rng.standard_normal((M, W_pre * P, 2 * D)) * 3).to(
+        cuda, in_dtype)
+    pid = rng.permutation(NP)[:M * W_pre].reshape(M, W_pre).astype(np.int32)
+    pid[rng.random((M, W_pre)) < 0.2] = NP
+    s = rng.uniform(0.005, 0.05, (2, M, W_pre)).astype(np.float32)
+    s[0, 0, 0] = 0.0
+    inv = torch.from_numpy(
+        np.divide(np.float32(1), s, out=np.zeros_like(s), where=s > 0)).to(cuda)
+    pool = torch.from_numpy(rng.integers(-127, 128, (NP, 2, P, D))
+                            .astype(np.int8)).to(cuda)
+    args = (kv[..., :D], kv[..., D:], torch.from_numpy(pid).to(cuda),
+            inv[0].contiguous(), inv[1].contiguous())
+    pool_k, pool_p = pool.clone(), pool.clone()
+    before = prefill_quant_scatter.launches
+    prefill_quant_scatter(pool_k, *args)
+    prefill_quant_scatter_plain(pool_p, *args)
+    assert prefill_quant_scatter.launches == before + 1
+    assert torch.equal(pool_k, pool_p)
+    assert not torch.equal(pool_k, pool)
