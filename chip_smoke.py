@@ -6,18 +6,26 @@
 
 Phases, one line each; any failure raises and exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build every kernel from csrc/ (one nvcc per source, in parallel);
+  2. build every kernel from csrc/ (one nvcc per source, in parallel) and
+     the native host scheduler (one c++, in parallel with them);
   3. hold each kernel against its plain PyTorch version on the card at the
      shapes of the path that runs it (pool bytes bit-identical, partials
      and outputs within a stated tolerance), and time kernel, plain version
      and bound: the fused-write grouped kernel at the reference path's
      shapes; its ring-partial mode (c), the dgrid partial, the ring flush
-     and the int8 prefill scatter at the gpt2s path's shapes;
+     and the int8 prefill scatter at the gpt2s path's shapes; the one-slot
+     kernel and the prefill scatter at the host path's shapes (1024 slots,
+     emb 2048, a fragmented table with stale dead rows; [128, 128, 2048]
+     prefill blocks), and the one-slot kernel on small multi-head f32
+     pools;
   4. engine parity on the card at small configs: the kernel path
      (attention_impl="grouped") against the gather oracle ("torch"),
      token for token: no ring for int4, int8 and float32 KV (reference
      model), and ring decode with dgrid on and off for int8, int4 (mode c)
-     and float32 KV (a small gpt2s-shaped model);
+     and float32 KV (a small gpt2s-shaped model); the host engines'
+     PagedEngine "paged" and "grouped" against "torch" for float32 and
+     int8 KV, roomy and preempting, and DenseEngine against
+     PagedEngine("torch");
   5. the reference path at full width, as ``python bench.py`` runs the JAX
      package with no flags: AutonomousEngine, the reference-parity model
      (1 layer, 1 head, emb 2048, vocab 1024, n_seq 128, bf16 weights made
@@ -38,8 +46,18 @@ Phases, one line each; any failure raises and exits non-zero:
      A warm run of 64 requests (its host syncs counted), one timed run with
      every launch counter set to 0 just before it, and one replay run whose
      middle call of each of its kernels is copied and replayed against the
-     plain version.
-Then a JSON line of per-kernel numbers and, last, the ok line.
+     plain version;
+  7. the host path at full width, as ``python bench.py --engine host
+     --attention pallas`` runs the JAX package: PagedEngine (Python page
+     scheduler, two-deep pipelined loop) on the one-slot kernel, phase 5's
+     model and request stream with int8 paged KV. A warm run of 64
+     requests (no sync from the package but the one pull per iteration),
+     one timed run with every launch counter set to 0 just before it, one
+     replay run whose middle one-slot and prefill calls are replayed
+     against the plain versions, and one NativePagedEngine run on the same
+     stream whose outputs must equal the timed run's token for token.
+Then a JSON line of per-kernel numbers (five kernels) and, last, the ok
+line.
 
 Float32 matmuls run in full float32: TF32 is turned off below.
 """
@@ -488,6 +506,101 @@ def check_prefill(name, t, timed):
     return res
 
 
+def one_slot_case(rng, dev, B, W, P, D, kv, in_dtype, NP, boundary=False):
+    """Random one-slot attention inputs as the host scheduler leaves them:
+    a shuffled (fragmented) page table, ~10% dead slots whose stale rows
+    hold live slots' page ids, q a column slice of one fused [B, 3D]
+    projection, lengths covering 1, P-1, P, P+1 and the full width
+    (``boundary``: every length a page multiple)."""
+    table = rng.permutation(NP)[:B * W].reshape(B, W).astype(np.int32)
+    if boundary:
+        lengths = (P * rng.integers(1, W + 1, B)).astype(np.int32)
+    else:
+        lengths = rng.integers(1, W * P + 1, B).astype(np.int32)
+        special = [1, P - 1, P, P + 1, W * P]
+        lengths[:len(special)] = special
+    lengths[5:][rng.random(B - 5) < 0.1] = 0
+    live = np.nonzero(lengths > 0)[0]
+    for d in np.nonzero(lengths == 0)[0]:
+        table[d] = table[rng.choice(live)]
+    if kv == "int8":
+        pool = rng.integers(-127, 128, (NP, 2, P, D), dtype=np.int8)
+    else:
+        pool = rng.standard_normal((NP, 2, P, D), dtype=np.float32)
+    qkv = torch.from_numpy(
+        rng.standard_normal((B, 3 * D)).astype(np.float32)).to(dev, in_dtype)
+    t = {"q": qkv[:, :D], "pool": torch.from_numpy(pool).to(dev),
+         "lengths": torch.from_numpy(lengths).to(dev),
+         "table": torch.from_numpy(table).to(dev), "ks": None, "vs": None}
+    if kv == "int8":
+        for side in ("ks", "vs"):
+            t[side] = torch.from_numpy(
+                (rng.random(NP) * 0.05 + 0.001).astype(np.float32)).to(dev)
+    return t
+
+
+def one_slot_bound(lens, calls, B, D, W, P, pool_bytes, q_bytes,
+                   scaled) -> tuple:
+    """Least time of ``calls`` one-slot calls of B slots whose slot-calls
+    had the lengths ``lens`` (0 = dead, clipped to W * P): the L K rows and
+    L V rows of each live slot-call (``pool_bytes`` per element) and its q
+    (``q_bytes`` per element) read once, o of every slot written in f32,
+    the touched pages' scales (when ``scaled``) and table entries and the
+    lengths read; 4 f32 operations per context row per feature."""
+    lens = np.minimum(np.asarray(lens, dtype=np.int64), W * P)
+    live = lens[lens > 0]
+    pages = int(np.ceil(live / P).sum())
+    nbytes = (int(live.sum()) * 2 * D * pool_bytes
+              + live.size * D * q_bytes
+              + calls * (B * D * 4 + B * 4)
+              + (2 * pages * 4 if scaled else 0)
+              + pages * 4)
+    return bound_of(nbytes, 4 * int(live.sum()) * D)
+
+
+def one_slot_call_bound(t) -> tuple:
+    """one_slot_bound of one call on the inputs ``t``."""
+    B, D = t["q"].shape
+    return one_slot_bound(t["lengths"].cpu().numpy(), 1, B, D,
+                          t["table"].shape[1], t["pool"].shape[2],
+                          t["pool"].element_size(), t["q"].element_size(),
+                          t["ks"] is not None)
+
+
+def check_one_slot(name, t, H, timed, tol=1e-4):
+    """One-slot kernel vs its plain version on the inputs ``t``: o within
+    tol * max(1, |o|max) (float32 sums in another order), dead slots
+    exactly zero, the pool unchanged."""
+    from min_llm_inference_tpu_torch.ops.paged_attention import (
+        paged_decode_attention as kernel,
+        paged_decode_attention_plain as plain,
+    )
+
+    args = (t["q"], t["pool"], t["lengths"], t["table"], t["ks"], t["vs"])
+    pool0 = t["pool"].clone()
+    got = kernel(*args, n_heads=H)
+    want = plain(*args, n_heads=H)
+    torch.cuda.synchronize()
+    if not torch.equal(pool0, t["pool"]):
+        raise AssertionError(f"{name}: the pool changed")
+    del pool0
+    if torch.any(got[t["lengths"] == 0] != 0):
+        raise AssertionError(f"{name}: dead slots not exactly zero")
+    err = (got - want).abs().max().item()
+    lim = tol * max(1.0, want.abs().max().item())
+    if not err <= lim:
+        raise AssertionError(f"{name}: max |o_kernel - o_plain| {err} > {lim}")
+    res = {"max_abs_err": err}
+    if timed:
+        timed_pair(res, lambda: kernel(*args, n_heads=H),
+                   lambda: plain(*args, n_heads=H), one_slot_call_bound(t))
+        lens = t["lengths"].cpu().numpy()
+        res["live_slots"] = int((lens > 0).sum())
+        res["mean_live_len"] = float(lens[lens > 0].mean())
+    log_result(name, {"o": "close", "dead_rows": "zero"}, res)
+    return res
+
+
 # ---------------------------------------------------------------- phases 4-6
 
 
@@ -605,6 +718,86 @@ def engine_parity(T, dev) -> int:
     return mode_c
 
 
+def host_parity(T, dev) -> int:
+    """Phase 4, host engines: PagedEngine's kernel paths ("paged", the
+    one-slot kernel; "grouped", the fused-write kernel over fragmented
+    tables) against its gather oracle ("torch"), token for token, for
+    float32 and int8 KV, in a roomy config and one that preempts; then
+    DenseEngine against PagedEngine("torch") on float32. Each kernel path
+    must launch its kernel once per round and layer. Returns the one-slot
+    kernel's launches."""
+    kernels = counters()
+    model = T.ModelConfig(n_vocab=256, emb_dim=32, n_seq=64, eof_token_id=255)
+    params = T.params_from_numpy(
+        numpy_init_params(np.random.default_rng(1), model, 0.05), model, dev)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 255, int(rng.integers(1, 40))).tolist()
+               for _ in range(24)]
+    one_slot = 0
+    for kv in ("float32", "int8"):
+        for label, extra in (("roomy", {}),
+                             ("pressure", dict(n_pages=6, init_num_pages=1))):
+            cfg = T.EngineConfig(**{**dict(
+                n_slots=8, page_size=16, n_pages=32, n_forward_rounds=4,
+                kv_dtype=kv, max_prefill_batch=4, decode_ring=False), **extra})
+            outs, stats = {}, {}
+            for impl, kname in (("torch", None),
+                                ("paged", "paged_decode_attention"),
+                                ("grouped", "paged_decode_attention_grouped")):
+                for k in kernels.values():
+                    k.launches = 0
+                store = make_store(T, prompts)
+                eng = T.PagedEngine(params, model, cfg, attention_impl=impl,
+                                    device=dev)
+                eng.run(store)
+                outs[impl] = [store.finished[i].tokens
+                              for i in range(len(prompts))]
+                stats[impl] = eng.stats
+                got = {n: k.launches for n, k in kernels.items()
+                       if k.launches}
+                want = {kname: eng.stats.rounds} if kname else {}
+                if kv == "int8":   # n_seq 64, a page multiple: page writes
+                    want["prefill_quant_scatter"] = eng.stats.prefills
+                if got != want:
+                    raise AssertionError(f"host {kv} {label} {impl}: launches "
+                                         f"{got}, expected {want}")
+                if impl == "paged":
+                    one_slot += got.get(kname, 0)
+            for impl in ("paged", "grouped"):
+                if outs[impl] != outs["torch"]:
+                    first = next(i for i in range(len(prompts))
+                                 if outs[impl][i] != outs["torch"][i])
+                    raise AssertionError(
+                        f"host parity {kv} {label}: {impl} request {first} "
+                        f"{outs[impl][first]} vs {outs['torch'][first]}")
+            pre = stats["paged"].preemptions
+            if (label == "pressure") != (pre > 0):
+                raise AssertionError(f"host {kv} {label}: {pre} preemptions")
+            log("engine", host=f"PagedEngine-{kv}-{label}",
+                requests=len(prompts), bursts=stats["paged"].bursts,
+                preemptions=pre,
+                generated=sum(len(o) - len(p)
+                              for o, p in zip(outs["torch"], prompts)),
+                tokens="paged == grouped == torch")
+    cfg = T.EngineConfig(n_slots=8, page_size=16, n_pages=32,
+                         n_forward_rounds=4, max_prefill_batch=4,
+                         decode_ring=False)
+    outs = {}
+    for name, make in (("dense", lambda: T.DenseEngine(params, model, cfg,
+                                                       device=dev)),
+                       ("paged", lambda: T.PagedEngine(
+                           params, model, cfg, attention_impl="torch",
+                           device=dev))):
+        store = make_store(T, prompts)
+        make().run(store)
+        outs[name] = [store.finished[i].tokens for i in range(len(prompts))]
+    if outs["dense"] != outs["paged"]:
+        raise AssertionError("DenseEngine differs from PagedEngine(torch)")
+    log("engine", host="DenseEngine-float32", requests=len(prompts),
+        tokens="dense == paged-torch")
+    return one_slot
+
+
 def counters():
     """The launch counter of every kernel wrapper, by kernel name."""
     from min_llm_inference_tpu_torch.ops import paged_attention_dgrid as dg
@@ -612,10 +805,13 @@ def counters():
     from min_llm_inference_tpu_torch.ops import prefill_scatter as ps
     from min_llm_inference_tpu_torch.ops import ring_flush as rf
 
+    from min_llm_inference_tpu_torch.ops import paged_attention as pa
+
     return {"paged_decode_attention_grouped": gr.paged_decode_attention_grouped,
             "dgrid_paged_partial": dg.dgrid_paged_partial,
             "ring_flush": rf.ring_flush,
-            "prefill_quant_scatter": ps.prefill_quant_scatter}
+            "prefill_quant_scatter": ps.prefill_quant_scatter,
+            "paged_decode_attention": pa.paged_decode_attention}
 
 
 def make_prompts(n, seed, V):
@@ -626,15 +822,20 @@ def make_prompts(n, seed, V):
             for _ in range(n)]
 
 
-def drive(T, dev, params, model, cfg, n, seed, engine_kw, count_syncs=False):
-    """One AutonomousEngine run of ``n`` requests on the kernel path, timed
-    by the host clock around work that ends synchronized. With count_syncs,
+def drive(T, dev, params, model, cfg, n, seed, engine_kw, count_syncs=False,
+          engine_cls=None):
+    """One engine run of ``n`` requests, timed by the host clock around
+    work that ends synchronized: AutonomousEngine on its kernel path
+    ("grouped"), or ``engine_cls`` with ``engine_kw``. With count_syncs,
     PyTorch's sync debug mode records every device sync of the run; the
     engine gets ``syncs_seen`` (those made from the package's code) and
     ``sync_sites``."""
     store = make_store(T, make_prompts(n, seed, model.n_vocab))
-    eng = T.AutonomousEngine(params, model, cfg, attention_impl="grouped",
-                             device=dev, **engine_kw)
+    if engine_cls is None:
+        eng = T.AutonomousEngine(params, model, cfg, attention_impl="grouped",
+                                 device=dev, **engine_kw)
+    else:
+        eng = engine_cls(params, model, cfg, device=dev, **engine_kw)
     T.get_global_throughput_counter().reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -789,7 +990,8 @@ def gpt2s_path(T, dev, gpu_line, profile_dir=None):
     want = {"dgrid_paged_partial": st.rounds * L,
             "ring_flush": executed * L,
             "prefill_quant_scatter": st.prefills * L,
-            "paged_decode_attention_grouped": 0}
+            "paged_decode_attention_grouped": 0,
+            "paged_decode_attention": 0}
     if launches != want or 0 in (st.rounds, executed, st.prefills):
         raise AssertionError(f"gpt2s launches {launches}, expected {want} "
                              f"(rounds {st.rounds}, executed bursts "
@@ -830,6 +1032,125 @@ def gpt2s_path(T, dev, gpu_line, profile_dir=None):
     if profile_dir:
         profile_path(lambda: run(n_req, seed=2), profile_dir, wall, "gpt2s")
     return launches, res
+
+
+def host_path(T, dev, gpu_line, profile_dir=None):
+    """Phase 7: the host-scheduled path at full width, as ``python bench.py
+    --engine host --attention pallas`` runs the JAX package: PagedEngine's
+    Python page scheduler and two-deep pipelined loop on the one-slot
+    kernel, the reference-parity model and request stream of phase 5 with
+    int8 paged KV. Returns (launches by kernel name of the timed run,
+    {kernel name: replayed-call result})."""
+    from min_llm_inference_tpu_torch.utils.profiling import (
+        get_global_phase_stats,
+    )
+
+    V, D, S, P = (MAIN["n_vocab"], MAIN["emb_dim"], MAIN["n_seq"],
+                  MAIN["page_size"])
+    n_req = MAIN["requests"]
+    model = T.ModelConfig(n_vocab=V, emb_dim=D, n_seq=S, eof_token_id=V - 1,
+                          dtype="bfloat16")
+    cfg = T.EngineConfig(n_slots=MAIN["n_slots"], n_pages=MAIN["n_pages"],
+                         n_forward_rounds=16, page_size=P, init_num_pages=2,
+                         kv_dtype="int8", max_prefill_batch=128,
+                         decode_ring=False, subbursts=2)
+    params = T.params_from_numpy(
+        bench_params(np.random.default_rng(0), V, D, S, V - 1), model, dev)
+
+    def run(n, seed, count_syncs=False, engine_cls=T.PagedEngine):
+        return drive(T, dev, params, model, cfg, n, seed,
+                     dict(attention_impl="paged"), count_syncs, engine_cls)
+
+    # warm run: the loop's one sync per burst is its wait on the pulled
+    # results' event, which the engine counts; sync debug mode must see no
+    # other sync from the package (uploads are pinned and non-blocking)
+    warm, _, _ = run(64, seed=1, count_syncs=True)
+    wst = warm.stats
+    log("syncs", path="host", requests=64, bursts=wst.bursts,
+        pulls=wst.host_syncs, uploads=wst.uploads,
+        seen_in_package=warm.syncs_seen, sites=warm.sync_sites)
+    if warm.syncs_seen != 0 or wst.host_syncs != wst.bursts:
+        raise AssertionError(f"host: {warm.syncs_seen} hidden syncs, "
+                             f"{wst.host_syncs} pulls for {wst.bursts} bursts")
+    kernels = counters()
+    for k in kernels.values():
+        k.launches = 0
+    phases = get_global_phase_stats()
+    phases.reset()
+    eng, store, wall = run(n_req, seed=2)
+    host_s = phase_seconds(phases)
+    launches = {name: k.launches for name, k in kernels.items()}
+    st = eng.stats
+    total = check_outputs(store, n_req, S, V)
+    want = {name: 0 for name in kernels}
+    want["paged_decode_attention"] = st.rounds * model.n_layers
+    want["prefill_quant_scatter"] = st.prefills * model.n_layers
+    if 0 in (st.rounds, st.prefills) or launches != want:
+        raise AssertionError(f"host launches {launches}, expected {want}")
+    n_launch = launches["paged_decode_attention"]
+    # the live slot-calls of the run: one per generated token, at the
+    # context length it was generated from
+    ctx = np.concatenate([np.arange(r.prompt_len, len(r.tokens))
+                          for r in store.finished.values()])
+    run_bound, _ = one_slot_bound(
+        ctx, n_launch, cfg.n_slots, D, cfg.pages_per_slot(S), P,
+        getattr(torch, cfg.kv_dtype).itemsize,
+        getattr(torch, model.dtype).itemsize, cfg.kv_dtype == "int8")
+    log("host", requests=n_req, generated=total, wall_s=f"{wall:.4f}",
+        tok_s=f"{total / wall:.1f}", gpu=f"'{gpu_line}'",
+        iterations=st.bursts, rounds=st.rounds, prefills=st.prefills,
+        preemptions=st.preemptions,
+        syncs_per_iteration=f"{st.host_syncs / st.bursts:.3f}",
+        uploads_per_iteration=f"{st.uploads / st.bursts:.3f}",
+        kernel_launches=n_launch,
+        mean_live_context=f"{ctx.mean():.2f}",
+        mean_live_slots_per_launch=f"{ctx.size / n_launch:.1f}",
+        kernel_bound_ms_per_launch=f"{run_bound / n_launch:.6g}",
+        host_phase_s=host_s)
+    # the middle call of each kernel of that run, replayed on its inputs
+    snaps = capture_calls(lambda: run(n_req, seed=2), {
+        "paged_decode_attention": ("models.paged", "paged_decode_attention",
+                                   n_launch // 2),
+        "prefill_quant_scatter": ("models.paged", "prefill_quant_scatter",
+                                  launches["prefill_quant_scatter"] // 2)})
+    args, kw = snaps["paged_decode_attention"]
+    res = {"paged_decode_attention": check_one_slot(
+        f"host-call-{n_launch // 2}",
+        dict(zip(("q", "pool", "lengths", "table", "ks", "vs"), args)),
+        kw["n_heads"], timed=True)}
+    res["paged_decode_attention"]["run_bound_ms_per_launch"] = (
+        run_bound / n_launch)
+    args, _ = snaps["prefill_quant_scatter"]
+    res["prefill_quant_scatter"] = check_prefill(
+        f"host-prefill-call-{launches['prefill_quant_scatter'] // 2}",
+        dict(zip(("pool", "k", "v", "pid", "inv_k", "inv_v"), args)),
+        timed=True)
+    # the native scheduler on the same request stream: the same tokens
+    phases.reset()
+    n_eng, n_store, n_wall = run(n_req, seed=2,
+                                 engine_cls=T.NativePagedEngine)
+    native_s = phase_seconds(phases)
+    n_total = check_outputs(n_store, n_req, S, V)
+    for rid, req in store.finished.items():
+        if n_store.finished[rid].tokens != req.tokens:
+            raise AssertionError(f"native request {rid} differs from the "
+                                 "Python-scheduled run")
+    log("host", engine="NativePagedEngine", requests=n_req,
+        generated=n_total, wall_s=f"{n_wall:.4f}",
+        tok_s=f"{n_total / n_wall:.1f}", gpu=f"'{gpu_line}'",
+        iterations=n_eng.stats.bursts, preemptions=n_eng.stats.preemptions,
+        host_phase_s=native_s, tokens="native == python")
+    if profile_dir:
+        profile_path(lambda: run(n_req, seed=2), profile_dir, wall, "host")
+    return launches, res
+
+
+def phase_seconds(stats) -> str:
+    """The engine's host seconds per phase (utils.profiling.phase), e.g.
+    ``forward:0.41,process_results:0.52``; ``forward`` is the enqueue of
+    the bursts, ``process_results`` includes the wait on each pull."""
+    return ",".join(f"{name}:{v['seconds']:.4f}"
+                    for name, v in stats.summary().items())
 
 
 def capture_calls(run, targets):
@@ -887,7 +1208,8 @@ def profile_path(run, out_dir, wall_unprofiled, label):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, _, wall = run()
-    phases = {"burst_dispatch", "status_fetch", "drain_fetch"}
+    phases = {"burst_dispatch", "status_fetch", "drain_fetch", "forward",
+              "process_results", "schedule", "prefill"}
     rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.key in phases:
@@ -918,6 +1240,7 @@ SOURCES = {
         "paged_attention_dgrid.cu", "paged_attention_dgrid.py:195"),
     "ring_flush": ("ring_flush.cu", "ring_flush.py:131"),
     "prefill_quant_scatter": ("prefill_scatter.cu", "prefill_scatter.py:93"),
+    "paged_decode_attention": ("paged_attention.cu", "paged_attention.py:250"),
 }
 
 
@@ -958,8 +1281,8 @@ def main() -> int:
         cuda=torch.version.cuda, tf32="off")
 
     t0 = time.perf_counter()
-    took = _build.build()
-    for src in _build.SOURCES:
+    took = _build.build(_build.SOURCES + _build.HOST_SOURCES)
+    for src in _build.SOURCES + _build.HOST_SOURCES:
         with open(_build.library_path(src) + ".log") as f:
             ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
         log("build", source=src, nvcc_s=f"{took.get(src, 0.0):.2f}",
@@ -1033,14 +1356,34 @@ def main() -> int:
         gW, g["n_pages"]), timed=True)
     check_prefill("small-prefill-f32-odd", prefill_case(
         rng, dev, 9, 16, 36, 8, 4, 64, torch.float32), timed=False)
+    # the host path's prefill blocks: max_prefill_batch rows of n_seq
+    # tokens at emb 2048
+    prefill_host = check_prefill("host-prefill-bf16", prefill_case(
+        rng, dev, 128, MAIN["n_seq"], MAIN["emb_dim"], P,
+        shape[1], MAIN["n_pages"]), timed=True)
+    # the host path's one-slot calls: 1024 slots, W = 4 pages of 32 rows,
+    # emb 2048, one head, int8 pages, a fragmented table
+    one_rand = check_one_slot("host-one-slot-int8", one_slot_case(
+        rng, dev, MAIN["n_slots"], shape[1], P, MAIN["emb_dim"], "int8",
+        torch.bfloat16, MAIN["n_pages"]), 1, timed=True)
+    errs["paged_decode_attention"] = [one_rand["max_abs_err"]]
+    for H, D in ((2, 64), (12, 96)):
+        r = check_one_slot(f"small-one-slot-H{H}-f32", one_slot_case(
+            rng, dev, 16, 4, 8, D, "float32", torch.float32, 16 * 4 + 3,
+            boundary=True), H, timed=False)
+        errs["paged_decode_attention"].append(r["max_abs_err"])
 
     mode_c_engine = engine_parity(T, dev)
+    one_slot_engine = host_parity(T, dev)
     # ms, plain_ms and bound_ms: one call of each path replayed on its real
     # inputs; launches: each path's timed run
     ref_launches, ref = main_path(T, dev, gpu_line, args.profile)
     errs["paged_decode_attention_grouped"].append(ref["max_abs_err"])
     g_launches, g_res = gpt2s_path(T, dev, gpu_line, args.profile)
     for name, r in g_res.items():
+        errs[name].append(r["max_abs_err"])
+    h_launches, h_res = host_path(T, dev, gpu_line, args.profile)
+    for name, r in h_res.items():
         errs[name].append(r["max_abs_err"])
 
     entries = [kernel_entry(
@@ -1060,10 +1403,28 @@ def main() -> int:
     rand = {"dgrid_paged_partial": dgrid_rand, "ring_flush": flush_rand,
             "prefill_quant_scatter": prefill_rand}
     for name in ("dgrid_paged_partial", "ring_flush", "prefill_quant_scatter"):
+        extra = {}
+        if name == "prefill_quant_scatter":
+            hp = h_res[name]
+            extra = dict(host_launches=h_launches[name], host_ms=hp["ms"],
+                         host_plain_ms=hp["plain_ms"],
+                         host_bound_ms=hp["bound_ms"],
+                         random_128x128x2048_ms=prefill_host["ms"],
+                         random_128x128x2048_plain_ms=prefill_host["plain_ms"],
+                         random_128x128x2048_bound_ms=prefill_host["bound_ms"])
         entries.append(kernel_entry(
             name, g_launches[name], errs[name], g_res[name],
             random_ms=rand[name]["ms"], random_bound_ms=rand[name]["bound_ms"],
-            random_plain_ms=rand[name]["plain_ms"]))
+            random_plain_ms=rand[name]["plain_ms"], **extra))
+    hr = h_res["paged_decode_attention"]
+    entries.append(kernel_entry(
+        "paged_decode_attention", h_launches["paged_decode_attention"],
+        errs["paged_decode_attention"], hr,
+        mean_live_len=hr["mean_live_len"], live_slots=hr["live_slots"],
+        run_bound_ms_per_launch=hr["run_bound_ms_per_launch"],
+        random_ms=one_rand["ms"], random_plain_ms=one_rand["plain_ms"],
+        random_bound_ms=one_rand["bound_ms"],
+        engine_parity_launches=one_slot_engine))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

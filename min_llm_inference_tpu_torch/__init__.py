@@ -9,9 +9,13 @@ without a GPU they raise rather than run on the CPU.
 
 Ported so far: the AutonomousEngine full-grant path, with and without
 ring decode (the reference model of ``bench.py`` and its 12-layer gpt2s
-path), on four hand-written CUDA kernels: paged attention with the fused
-write and the ring partial (csrc/paged_attention_grouped.cu), the
-group-view ring partial (csrc/paged_attention_dgrid.cu), the ring flush
+path), and the host-scheduled engines (PagedEngine with the Python page
+scheduler, NativePagedEngine with the C++ one built from csrc/scheduler.cpp
+at first use, DenseEngine), on five hand-written CUDA kernels: paged
+attention with the fused write and the ring partial
+(csrc/paged_attention_grouped.cu), one-slot paged decode attention over
+fragmented host tables (csrc/paged_attention.cu), the group-view ring
+partial (csrc/paged_attention_dgrid.cu), the ring flush
 (csrc/ring_flush.cu) and the int8 prefill quantize + scatter
 (csrc/prefill_scatter.cu).
 """
@@ -31,6 +35,12 @@ from .runtime.autonomous import (
     BurstStats,
     StreamingSession,
     init_auto_state,
+)
+from .runtime.engine import (
+    DenseEngine,
+    EngineStats,
+    NativePagedEngine,
+    PagedEngine,
 )
 from .runtime.item_storage import ItemStorage, Request
 
@@ -54,6 +64,10 @@ __all__ = [
     "BurstStats",
     "StreamingSession",
     "init_auto_state",
+    "DenseEngine",
+    "EngineStats",
+    "NativePagedEngine",
+    "PagedEngine",
     "ItemStorage",
     "Request",
 ]

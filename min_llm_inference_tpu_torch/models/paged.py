@@ -11,11 +11,21 @@ and scales IN PLACE (the engine owns them and never needs the old
 contents); the functions still return them so call sites read like the
 JAX ones.
 
-Two interchangeable decode attentions:
-  * ``torch``   -- scatter the new row, then gather every slot's pages into
-    a contiguous view and run the masked attention oracle;
-  * ``grouped`` -- the fused-write kernel (ops/paged_attention_grouped.py):
-    quantize + insert the new row and attend in one launch.
+Three interchangeable decode attentions (``attention_impl``), named for
+what runs; the JAX package's names in brackets:
+  * ``torch``   [``jnp``] -- scatter the new row, then gather every slot's
+    pages into a contiguous view and run the masked attention oracle;
+  * ``paged``   [``pallas``] -- scatter the new row, then the one-slot
+    kernel (ops/paged_attention.py): float32 or int8 pools, no packed int4;
+  * ``grouped`` [``grouped``] -- the fused-write kernel
+    (ops/paged_attention_grouped.py): quantize + insert the new row and
+    attend in one launch. It reads one page id per page, so fragmented
+    host tables are fine.
+
+The host-scheduled engines (runtime/engine.py) call ``_prefill`` and
+``_decode_rounds`` through ``make_paged_fns``: compact [M, n_seq] prefill
+over fragmented page rows, then n_forward_rounds greedy rounds driven by a
+packed [B, 2+W] scheduler operand.
 
 Ring decode (``make_ring_round_callbacks``): each round's K/V rows go to a
 per-layer ring ``[B, R_pad, 2*Dk]`` (K columns first) instead of the pool;
@@ -26,12 +36,14 @@ lands in the pages once per burst (ops/ring_flush.py).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
 
 from ..config import EngineConfig, ModelConfig, resolve_device
 from ..ops.indexing import index_set_drop_
+from ..ops.paged_attention import paged_decode_attention
 from ..ops.paged_attention_dgrid import dgrid_paged_partial
 from ..ops.paged_attention_grouped import paged_decode_attention_grouped
 from ..ops.prefill_scatter import prefill_quant_scatter
@@ -46,6 +58,7 @@ from ..ops.quant import (
     update_page_scales,
 )
 from ..ops.reference import inv_sqrt, masked_attention
+from .model import DEFAULT_CTX, decode_round_tokens, prefill_write_kv
 
 _TINY = torch.finfo(torch.float32).tiny
 
@@ -444,6 +457,45 @@ def flush_ring_to_pages(pool, ring, ring_start, lengths, n_rounds,
     return pool
 
 
+def check_attention_impl(engine_cfg: EngineConfig,
+                         attention_impl: str) -> None:
+    """Raise for an unknown ``attention_impl`` of the host engines, or for
+    the one-slot kernel (``paged``) on a packed int4 pool, which it does
+    not take, as the JAX engine asserts."""
+    if attention_impl not in ("paged", "grouped", "torch"):
+        raise ValueError(f"unknown attention_impl {attention_impl!r}")
+    if attention_impl == "paged" and engine_cfg.kv_packed:
+        raise ValueError("int4 KV is supported by attention_impl "
+                         "'grouped' or 'torch' only")
+
+
+def make_attend_impl(model_cfg: ModelConfig, engine_cfg: EngineConfig,
+                     attention_impl: str, page_table, n_heads=None):
+    """attend(pool, ks, vs, q, lengths) -> [B, D] in q's dtype for a fixed
+    page table: the one-slot kernel (``paged``), the grouped kernel without
+    the fused write (``grouped``, mode a) or the gather oracle
+    (``torch``)."""
+    check_attention_impl(engine_cfg, attention_impl)
+    P = engine_cfg.page_size
+    heads = n_heads or model_cfg.n_heads
+    if attention_impl == "paged":
+        def attend(pool, ks, vs, q, lens):
+            return paged_decode_attention(
+                q, pool, lens, page_table, ks, vs, n_heads=heads,
+            ).to(q.dtype)
+    elif attention_impl == "grouped":
+        def attend(pool, ks, vs, q, lens):
+            return paged_decode_attention_grouped(
+                q, pool, lens, page_table, ks, vs, n_heads=heads,
+                packed_int4=engine_cfg.kv_packed,
+            ).to(q.dtype)
+    else:
+        def attend(pool, ks, vs, q, lens):
+            return torch_paged_attend(pool, ks, vs, q, lens, page_table, P,
+                                      heads)
+    return attend
+
+
 def make_round_kv_callbacks(
     model_cfg: ModelConfig,
     engine_cfg: EngineConfig,
@@ -461,8 +513,10 @@ def make_round_kv_callbacks(
     write_kv only updates the fresh pages' scales (the kernel quantizes
     against the UPDATED scale) and stashes the raw rows; attend hands them
     to the kernel, which inserts the row at lengths-1 in place and attends
-    over it. ``torch``: scatter the row, then the gather oracle. Both give
-    the same pool bytes (tests/test_torch_grouped_attention.py)."""
+    over it. ``torch`` and ``paged``: scatter the row, then attend with the
+    gather oracle or the one-slot kernel (``make_attend_impl``). All give
+    the same pool bytes (tests/test_torch_grouped_attention.py,
+    tests/test_torch_paged_attention.py)."""
     P = engine_cfg.page_size
     NP = engine_cfg.n_pages
     heads = n_heads or model_cfg.n_heads
@@ -491,8 +545,8 @@ def make_round_kv_callbacks(
 
         return write_kv, attend
 
-    if attention_impl != "torch":
-        raise ValueError(f"unknown attention_impl {attention_impl!r}")
+    attend_impl = make_attend_impl(model_cfg, engine_cfg, attention_impl,
+                                   page_table, n_heads=heads)
     flat_idx = _flat_scatter_indices(page_table, pos, live, P, NP)
 
     def write_kv(li, pos_, k, v, live_):
@@ -500,8 +554,7 @@ def make_round_kv_callbacks(
                          flat_idx, k, v, fresh_pid, n_heads=heads)
 
     def attend(li, q, lens):
-        return torch_paged_attend(kv_pages[li], k_scales[li], v_scales[li],
-                                  q, lens, page_table, P, heads)
+        return attend_impl(kv_pages[li], k_scales[li], v_scales[li], q, lens)
 
     return write_kv, attend
 
@@ -579,3 +632,75 @@ def make_ring_round_callbacks(
         ).to(q.dtype)
 
     return write_kv, attend
+
+
+def _prefill(
+    model_cfg: ModelConfig,
+    engine_cfg: EngineConfig,
+    params,
+    state: PagedKVState,
+    prompts,         # [M, S] int32, compact new slots (padded rows: length 0)
+    prompt_lengths,  # [M] int32
+    page_rows,       # [M, W] int32 page-table rows of those slots
+    ctx=DEFAULT_CTX,
+) -> PagedKVState:
+    """Compact prefill of the newly admitted slots into their (possibly
+    fragmented) pages, in place. With S a page multiple the int8 write is
+    the page-granular ``prefill_quant_scatter``."""
+    write_kv_block, finalize = make_prefill_kv_writer(
+        state, page_rows, prompt_lengths, prompts.shape[1],
+        engine_cfg.page_size, engine_cfg.n_pages,
+        n_heads=ctx.local_heads(model_cfg),
+    )
+    prefill_write_kv(params, model_cfg, prompts, prompt_lengths,
+                     write_kv_block, ctx)
+    return finalize()
+
+
+def _decode_rounds(
+    model_cfg: ModelConfig,
+    engine_cfg: EngineConfig,
+    attention_impl: str,
+    params,
+    state: PagedKVState,
+    sched_packed,  # [B, 2+W] int32: col 0 length update (-1 = keep), col 1
+                   # last-token update, cols 2: the page table. One packed
+                   # upload carries every scheduler decision per host step.
+    lengths,       # [B] int32 (device-chained)
+    last_tokens,   # [B] int32 (device-chained)
+    ctx=DEFAULT_CTX,
+):
+    """n_forward_rounds greedy decode rounds over the paged pools (written
+    in place). Returns (state, lengths, last_tokens, tokens [B, R]) with
+    EMPTY_ROW_TOKEN_ID in the rows of dead slots."""
+    upd = sched_packed[:, 0]
+    lengths = torch.where(upd >= 0, upd, lengths)
+    last_tokens = torch.where(upd >= 0, sched_packed[:, 1], last_tokens)
+    page_table = sched_packed[:, 2:].contiguous()
+    kv_pages = list(state.kv_pages)
+    k_scales, v_scales = list(state.k_scales), list(state.v_scales)
+    heads = ctx.local_heads(model_cfg)
+    toks = []
+    for _ in range(engine_cfg.n_forward_rounds):
+        live = lengths > 0
+        write_kv, attend = make_round_kv_callbacks(
+            model_cfg, engine_cfg, attention_impl, page_table,
+            kv_pages, k_scales, v_scales, lengths, n_heads=heads,
+        )
+        tok, lengths_next = decode_round_tokens(
+            params, model_cfg, lengths, last_tokens, write_kv, attend, ctx)
+        last_tokens = torch.where(live, tok, last_tokens)
+        lengths = lengths_next
+        toks.append(tok)
+    state = PagedKVState(tuple(kv_pages), tuple(k_scales), tuple(v_scales))
+    return state, lengths, last_tokens, torch.stack(toks, dim=1)
+
+
+def make_paged_fns(model_cfg: ModelConfig, engine_cfg: EngineConfig,
+                   attention_impl: str = "torch"):
+    """(prefill, decode_rounds) of the host engines for a config pair:
+    plain functions (eager PyTorch has nothing to compile or cache)."""
+    check_attention_impl(engine_cfg, attention_impl)
+    return (functools.partial(_prefill, model_cfg, engine_cfg),
+            functools.partial(_decode_rounds, model_cfg, engine_cfg,
+                              attention_impl))

@@ -1,11 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 into its own shared library for Hopper (``sm_90a``), loaded with ctypes.
-Libraries are built at first use into ``_build/`` inside the package (listed
-in .gitignore), named by a hash of the source and flags so that an edit
-rebuilds. Nothing here runs at import time: the CPU tests import every
-module, and the CPU has no ``nvcc``.
+``csrc/*.cpp`` files (the native host scheduler) are compiled the same way
+by the host C++ compiler (``c++``). Libraries are built at first use into
+``_build/`` inside the package (listed in .gitignore), named by a hash of
+the source and flags so that an edit rebuilds. Nothing here runs at import
+time: the CPU tests import every module, and the CPU has no ``nvcc``.
 
 No ``--use_fast_math``: the kernels' quantizers must round exactly as the
 plain versions do (IEEE ``1.0f / s``, ``rintf``).
@@ -25,13 +26,24 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("paged_attention_grouped.cu", "paged_attention_dgrid.cu",
-           "ring_flush.cu", "prefill_scatter.cu")
+           "ring_flush.cu", "prefill_scatter.cu", "paged_attention.cu")
+# host C++ sources (no CUDA): built by the host compiler
+HOST_SOURCES = ("scheduler.cpp",)
 # dynamic shared memory a block may use on Hopper (227 KB)
 MAX_SMEM = 232448
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-Wall", "-Wextra")
+
+
+def _is_host(source: str) -> bool:
+    return source.endswith(".cpp")
+
+
+def _flags(source: str) -> tuple:
+    return CXX_FLAGS if _is_host(source) else NVCC_FLAGS
 
 
 def _nvcc() -> str:
@@ -45,28 +57,42 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _cxx() -> str:
+    for name in ("c++", "g++", "clang++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (c++, g++, clang++) found: the "
+                       "native scheduler cannot be built")
+
+
 def library_path(source: str) -> str:
     with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join(_flags(source)).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 
 
 def build(sources=SOURCES) -> dict:
-    """Compile every source whose library is missing, one ``nvcc`` per
-    source, all started together. Returns {source: seconds} for the
-    sources compiled by this call; raises with nvcc's output on failure."""
+    """Compile every source whose library is missing, one compiler process
+    per source (``nvcc`` for .cu, ``c++`` for .cpp), all started together.
+    Returns {source: seconds} for the sources compiled by this call; raises
+    with the compiler's output on failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     todo = [s for s in sources if not os.path.exists(library_path(s))]
     if not todo:
         return {}
-    nvcc = _nvcc()
+    compilers = {}
     procs = []
     for src in todo:
+        kind = "host" if _is_host(src) else "cuda"
+        if kind not in compilers:
+            compilers[kind] = _cxx() if kind == "host" else _nvcc()
         out = library_path(src)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, src)]
+        cmd = [compilers[kind], *_flags(src), "-o", tmp,
+               os.path.join(CSRC_DIR, src)]
         procs.append((src, out, tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     took, failed = {}, []
@@ -81,7 +107,7 @@ def build(sources=SOURCES) -> dict:
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+        raise RuntimeError("build failed\n" + "\n".join(failed))
     return took
 
 

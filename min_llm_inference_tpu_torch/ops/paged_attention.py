@@ -1,0 +1,136 @@
+"""One-slot paged decode attention: the wrapper of the hand-written Hopper
+kernel ``csrc/paged_attention.cu`` and its plain PyTorch version.
+
+Counterpart of min_llm_inference_tpu/ops/paged_attention.py
+(``paged_decode_attention``, the Pallas TPU kernel of the host-scheduled
+``PagedEngine``). Same layout:
+  q:          [B, D]                f32 or bf16 (D = n_heads * head_dim)
+  kv_pages:   [NP, 2, P, D]         one pool, 0 = K rows, 1 = V rows;
+                                    float32 or int8 (no packed int4)
+  lengths:    [B] int32             0 = dead slot
+  page_table: [B, W] int32          any page ids (fragmented tables)
+  k/v_scales: [NP] f32              per-page scales (int8 pools only)
+Returns [B, D] float32, exact zeros for dead slots.
+
+The wrapper takes the plain version only for tensors on the CPU. For CUDA
+tensors it launches the kernel or raises; it never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from ._build import check_contig, check_rows
+from .reference import inv_sqrt
+
+_SOURCE = "paged_attention.cu"
+_POOL_KINDS = {torch.float32: 0, torch.int8: 1}
+_IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def paged_decode_attention(q, kv_pages, lengths, page_table, k_scales=None,
+                           v_scales=None, *, n_heads: int = 1):
+    """Length-masked attention of each slot's q over its pages, dequantized
+    first (K and V rows times their page's scale, as the JAX kernel does).
+    Raises for a packed int4 pool (feature width D/2), as the JAX engine
+    asserts: int4 goes to the grouped kernel."""
+    if q.dim() != 2 or kv_pages.dim() != 4:
+        raise ValueError("q must be [B, D] and kv_pages [NP, 2, P, D]")
+    if kv_pages.shape[-1] != q.shape[-1]:
+        raise ValueError("the one-slot kernel takes float32 or int8 pools "
+                         "of q's width, not packed int4 (use 'grouped')")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales go together")
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, kv_pages, lengths, page_table,
+                                            k_scales, v_scales,
+                                            n_heads=n_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return _launch(q, kv_pages, lengths, page_table, k_scales, v_scales,
+                   n_heads)
+
+
+# kernel launches since the last reset (launches made by the wrapper only)
+paged_decode_attention.launches = 0
+
+
+def paged_decode_attention_plain(q, kv_pages, lengths, page_table,
+                                 k_scales=None, v_scales=None, *,
+                                 n_heads: int = 1):
+    """The plain version: the gather oracle (``torch_paged_attend``) in
+    float32, which dequantizes the gathered rows before the dots."""
+    from ..models.paged import torch_paged_attend
+
+    return torch_paged_attend(kv_pages, k_scales, v_scales, q.float(),
+                              lengths, page_table, kv_pages.shape[2], n_heads)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The kernel's library (built on first use) with its C signatures."""
+    lib = _build.load(_SOURCE)
+    vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    lib.mli_paged_attention.argtypes = [
+        vp, ll, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, f, vp,
+    ]
+    lib.mli_paged_attention.restype = ctypes.c_int
+    lib.mli_paged_attention_smem.argtypes = [i, i, i, i, i, i]
+    lib.mli_paged_attention_smem.restype = ctypes.c_longlong
+    lib.mli_error_string.argtypes = [i]
+    lib.mli_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, n_heads):
+    dev = q.device
+    B, D = q.shape
+    NP, two, P, _ = kv_pages.shape
+    W = page_table.shape[-1]
+    if q.dtype not in _IN_DTYPES:
+        raise ValueError(f"q dtype {q.dtype} not supported by the kernel")
+    if kv_pages.dtype not in _POOL_KINDS:
+        raise ValueError(f"pool dtype {kv_pages.dtype} not supported by the "
+                         "kernel (float32, int8)")
+    quantized = kv_pages.dtype == torch.int8
+    if two != 2 or n_heads <= 0 or D % n_heads:
+        raise ValueError("pool shape does not match q / n_heads")
+    if quantized != (k_scales is not None):
+        raise ValueError("int8 pools need k_scales and v_scales, float pools "
+                         "take none")
+    check_rows("q", q, B, D, q.dtype, dev)
+    check_contig("kv_pages", kv_pages, (NP, 2, P, D), kv_pages.dtype, dev)
+    check_contig("lengths", lengths, (B,), torch.int32, dev)
+    check_contig("page_table", page_table, (B, W), torch.int32, dev)
+    if quantized:
+        check_contig("k_scales", k_scales, (NP,), torch.float32, dev)
+        check_contig("v_scales", v_scales, (NP,), torch.float32, dev)
+    # 16-byte loads need every head's row segment and the pool base 16-byte
+    # aligned; otherwise one element per load
+    elem = kv_pages.element_size()
+    vec16 = ((D // n_heads) * elem % 16 == 0
+             and kv_pages.data_ptr() % 16 == 0)
+    lib = _library()
+    kind = _POOL_KINDS[kv_pages.dtype]
+    smem = lib.mli_paged_attention_smem(D, n_heads, W, P, kind, int(vec16))
+    if smem > _build.MAX_SMEM:
+        raise ValueError(f"kernel needs {smem} B of shared memory (> "
+                         f"{_build.MAX_SMEM}): context W*P={W * P} too long")
+    out = torch.empty((B, D), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.mli_paged_attention(
+            q.data_ptr(), q.stride(0), kv_pages.data_ptr(),
+            lengths.data_ptr(), page_table.data_ptr(),
+            k_scales.data_ptr() if quantized else None,
+            v_scales.data_ptr() if quantized else None,
+            out.data_ptr(), B, D, NP, P, W, n_heads, kind,
+            _IN_DTYPES[q.dtype], int(vec16), inv_sqrt(D // n_heads), stream,
+        )
+    _build.check(lib, rc, "paged_decode_attention kernel")
+    paged_decode_attention.launches += 1
+    return out

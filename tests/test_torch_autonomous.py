@@ -136,6 +136,9 @@ def test_entry_points_raise_without_a_gpu(params):
                              "wpe": np.zeros((64, 32)), "layers": []}, TMODEL)
     with pytest.raises(RuntimeError, match="CUDA"):
         T.AutonomousEngine(params[1], TMODEL, cfg)
+    for engine in (T.PagedEngine, T.NativePagedEngine, T.DenseEngine):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            engine(params[1], TMODEL, cfg)
 
 
 @pytest.mark.parametrize("change", [

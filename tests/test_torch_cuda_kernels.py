@@ -12,6 +12,10 @@ import pytest
 import torch
 
 from min_llm_inference_tpu_torch.models.paged import decode_fresh_pid
+from min_llm_inference_tpu_torch.ops.paged_attention import (
+    paged_decode_attention,
+    paged_decode_attention_plain,
+)
 from min_llm_inference_tpu_torch.ops.paged_attention_dgrid import (
     dgrid_paged_partial,
     dgrid_paged_partial_plain,
@@ -38,9 +42,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def grouped_inputs(rng, dev, kv, B, W, P, D, in_dtype):
-    """Fused-write inputs: contiguous page groups, dead slots, page-boundary
-    inserts, scales already updated for the fresh pages."""
+def stale_dead_rows(rng, table, lengths):
+    """Give every dead slot the table row of a random live slot, as the host
+    scheduler leaves a freed slot's row while its pages go to others."""
+    live = np.nonzero(lengths > 0)[0]
+    for d in np.nonzero(lengths == 0)[0]:
+        table[d] = table[rng.choice(live)]
+
+
+def grouped_inputs(rng, dev, kv, B, W, P, D, in_dtype, fragmented=False):
+    """Fused-write inputs: contiguous page groups (or, ``fragmented``, a
+    shuffled table whose dead rows hold live slots' page ids), dead slots,
+    page-boundary inserts, scales already updated for the fresh pages."""
     NG = B + 2
     NP = NG * W
     packed = kv == "int4"
@@ -49,6 +62,9 @@ def grouped_inputs(rng, dev, kv, B, W, P, D, in_dtype):
     table = (gids[:, None] * W + np.arange(W)[None, :]).astype(np.int32)
     lengths = rng.integers(0, W * P + 1, B).astype(np.int32)
     lengths[:6] = [0, 1, P - 1, P, P + 1, W * P]
+    if fragmented:
+        table = rng.permutation(NP)[:B * W].reshape(B, W).astype(np.int32)
+        stale_dead_rows(rng, table, lengths)
     if packed:
         pool = (16 * rng.integers(-7, 8, (NP, 2, P, Dk))
                 + rng.integers(-7, 8, (NP, 2, P, Dk))).astype(np.int8)
@@ -97,6 +113,27 @@ def test_grouped_kernel_matches_plain(cuda, kv, H, in_dtype):
     o_a = paged_decode_attention_grouped(x["q"], pool_k, *rest, **kw)
     o_ap = paged_decode_attention_grouped_plain(x["q"], pool_k, *rest, **kw)
     assert (o_a - o_ap).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "int8", "int4"])
+def test_grouped_kernel_fragmented_table(cuda, kv):
+    """The host engines hand the grouped kernel fragmented tables (one page
+    id per page, no contiguous run) whose dead rows hold live page ids:
+    pool bytes bit-identical, o within 1e-5 * max(1, |o|)."""
+    x = grouped_inputs(np.random.default_rng(31), cuda, kv, 64, 4, 16, 64,
+                       torch.bfloat16, fragmented=True)
+    kw = dict(n_heads=2, packed_int4=kv == "int4")
+    rest = (x["lengths"], x["table"], x["ks"], x["vs"])
+    pool_k, pool_p = x["pool"].clone(), x["pool"].clone()
+    o_k, _ = paged_decode_attention_grouped(x["q"], pool_k, *rest, x["k_new"],
+                                            x["v_new"], **kw)
+    o_p, _ = paged_decode_attention_grouped_plain(
+        x["q"], pool_p, *rest, x["k_new"], x["v_new"], **kw)
+    assert torch.equal(pool_k, pool_p)
+    assert (o_k - o_p).abs().max().item() <= 1e-5 * max(
+        1.0, o_p.abs().max().item())
+    assert torch.all(o_k[x["lengths"] == 0] == 0)
 
 
 @pytest.mark.cuda
@@ -253,3 +290,81 @@ def test_prefill_quant_scatter_matches_plain(cuda, in_dtype, D):
     assert prefill_quant_scatter.launches == before + 1
     assert torch.equal(pool_k, pool_p)
     assert not torch.equal(pool_k, pool)
+
+
+def one_slot_inputs(rng, dev, kv, B, W, P, D, in_dtype):
+    """One-slot attention inputs as the host scheduler leaves them: a
+    shuffled (fragmented) table, dead slots whose stale rows point at live
+    slots' pages, lengths on page boundaries and mid-page, q a column slice
+    of one fused [B, 3D] projection."""
+    NP = B * W + 3
+    table = rng.permutation(NP)[:B * W].reshape(B, W).astype(np.int32)
+    lengths = rng.integers(1, W * P + 1, B).astype(np.int32)
+    lengths[:7] = [0, 1, P - 1, P, P + 1, W * P, 0]
+    lengths[rng.random(B) < 0.15] = 0
+    stale_dead_rows(rng, table, lengths)
+    if kv == "int8":
+        pool = rng.integers(-127, 128, (NP, 2, P, D)).astype(np.int8)
+    else:
+        pool = rng.standard_normal((NP, 2, P, D)).astype(np.float32)
+    qkv = torch.from_numpy(
+        rng.standard_normal((B, 3 * D)).astype(np.float32)).to(dev, in_dtype)
+    x = dict(q=qkv[:, :D], pool=torch.from_numpy(pool).to(dev),
+             lengths=torch.from_numpy(lengths).to(dev),
+             table=torch.from_numpy(table).to(dev), ks=None, vs=None)
+    if kv == "int8":
+        for side in ("ks", "vs"):
+            x[side] = torch.from_numpy(
+                rng.uniform(0.001, 0.05, NP).astype(np.float32)).to(dev)
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "int8"])
+@pytest.mark.parametrize("B,W,P,H,D,in_dtype", [
+    (64, 4, 16, 1, 64, torch.bfloat16),
+    (64, 4, 16, 2, 64, torch.float32),
+    (37, 3, 8, 4, 32, torch.float32),      # int8 dh 8: one-element loads
+    (64, 4, 16, 12, 96, torch.bfloat16),
+    (128, 4, 32, 1, 2048, torch.bfloat16),  # the host path's width
+])
+def test_one_slot_kernel_matches_plain(cuda, kv, B, W, P, H, D, in_dtype):
+    """o within tol * max(1, |o|), tol 1e-5 (1e-4 at D = 2048: float32
+    sums of 2048-term dots in another order); dead slots exactly zero;
+    the pool unchanged."""
+    x = one_slot_inputs(np.random.default_rng(B + D + H), cuda, kv, B, W, P,
+                        D, in_dtype)
+    args = (x["q"], x["pool"], x["lengths"], x["table"], x["ks"], x["vs"])
+    pool0 = x["pool"].clone()
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(*args, n_heads=H)
+    want = paged_decode_attention_plain(*args, n_heads=H)
+    assert paged_decode_attention.launches == before + 1
+    assert torch.equal(x["pool"], pool0)
+    tol = (1e-4 if D >= 2048 else 1e-5) * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+    assert torch.all(got[x["lengths"] == 0] == 0)
+
+
+@pytest.mark.cuda
+def test_one_slot_kernel_all_dead(cuda):
+    x = one_slot_inputs(np.random.default_rng(5), cuda, "int8", 16, 2, 8, 32,
+                        torch.float32)
+    x["lengths"].zero_()
+    got = paged_decode_attention(x["q"], x["pool"], x["lengths"], x["table"],
+                                 x["ks"], x["vs"])
+    assert torch.all(got == 0)
+
+
+@pytest.mark.cuda
+def test_one_slot_kernel_rejects_unsupported_pools(cuda):
+    x = one_slot_inputs(np.random.default_rng(6), cuda, "int8", 8, 2, 8, 32,
+                        torch.float32)
+    args = (x["lengths"], x["table"], x["ks"], x["vs"])
+    with pytest.raises(ValueError):     # packed int4: feature width D/2
+        paged_decode_attention(x["q"], x["pool"][..., :16].contiguous(),
+                               *args)
+    with pytest.raises(ValueError):     # int8 without scales
+        paged_decode_attention(x["q"], x["pool"], *args[:2])
+    with pytest.raises(ValueError):     # bf16 pools are not the kernel's
+        paged_decode_attention(x["q"], x["pool"].to(torch.bfloat16), *args[:2])
