@@ -17,15 +17,23 @@ Phases, one line each; any failure raises and exits non-zero:
      kernel and the prefill scatter at the host path's shapes (1024 slots,
      emb 2048, a fragmented table with stale dead rows; [128, 128, 2048]
      prefill blocks), and the one-slot kernel on small multi-head f32
-     pools;
+     pools; the flat ring partial at the gpt2s shapes (int8, 12 heads) and
+     at the reference ring's (packed int4, emb 2048), and on small f32,
+     int8 and int4 pools with 1, 2 and 12 heads, overcommit's half-group
+     tables and dead rows with a stale ring_start; the int4 probe's
+     kernel through its entry point (``python -m
+     min_llm_inference_tpu_torch.tools.int4_probe`` runs it alone);
   4. engine parity on the card at small configs: the kernel path
      (attention_impl="grouped") against the gather oracle ("torch"),
      token for token: no ring for int4, int8 and float32 KV (reference
      model), and ring decode with dgrid on and off for int8, int4 (mode c)
-     and float32 KV (a small gpt2s-shaped model); the host engines'
-     PagedEngine "paged" and "grouped" against "torch" for float32 and
-     int8 KV, roomy and preempting, and DenseEngine against
-     PagedEngine("torch");
+     and float32 KV (a small gpt2s-shaped model); ring decode on the flat
+     partial (f32, int8, int4 KV, 1 and 2 heads) and on the dense view
+     (f32, int8, int4); overcommit with forced preemption without the
+     ring, with the ring on mode (c) and on the flat partial (f32, int8);
+     the host engines' PagedEngine "paged" and "grouped" against "torch"
+     for float32 and int8 KV, roomy and preempting, and DenseEngine
+     against PagedEngine("torch");
   5. the reference path at full width, as ``python bench.py`` runs the JAX
      package with no flags: AutonomousEngine, the reference-parity model
      (1 layer, 1 head, emb 2048, vocab 1024, n_seq 128, bf16 weights made
@@ -55,8 +63,23 @@ Phases, one line each; any failure raises and exits non-zero:
      one timed run with every launch counter set to 0 just before it, one
      replay run whose middle one-slot and prefill calls are replayed
      against the plain versions, and one NativePagedEngine run on the same
-     stream whose outputs must equal the timed run's token for token.
-Then a JSON line of per-kernel numbers (five kernels) and, last, the ok
+     stream whose outputs must equal the timed run's token for token;
+  8. the flat path at full width, as ``python bench.py --ring`` runs the
+     JAX package with ``attn_flat``: phase 5's model and request stream
+     with int4 KV, the decode ring carried across 2 sub-bursts and flushed
+     once per burst, and the flat ring partial. A warm run (host syncs
+     counted), a timed run with every launch counter set to 0 just before
+     it (flat launches = rounds, one flush per executed burst, no other
+     attention kernel), and a replay run whose middle flat and flush calls
+     are replayed against the plain versions;
+  9. the overcommit path at full width, as ``python bench.py --overcommit
+     --pages 3072`` runs the JAX package: phase 5's model and request
+     stream with int8 KV, no ring, 2 sub-bursts, half-group grants (1536
+     half-units for 1024 slots whose requests mostly need two), growth
+     and youngest-first preemption. A warm run (host syncs counted), a
+     timed run that must preempt, and a replay of its middle fused-write
+     call.
+Then a JSON line of per-kernel numbers (seven kernels) and, last, the ok
 line.
 
 Float32 matmuls run in full float32: TF32 is turned off below.
@@ -90,6 +113,9 @@ MAIN = dict(n_vocab=1024, emb_dim=2048, n_seq=128, page_size=32,
 GPT2S = dict(n_vocab=1024, emb_dim=768, n_seq=128, n_layers=12, n_heads=12,
              ffn_dim=3072, page_size=32, n_slots=1024, n_pages=4096,
              requests=2048)
+# the overcommit path's pool, as ``python bench.py --overcommit --pages
+# 3072`` sizes it: 1536 half-units of 2 pages for 1024 slots
+OVERCOMMIT_PAGES = 3072
 
 
 T0 = time.perf_counter()
@@ -297,11 +323,33 @@ def partial_case(rng, dev, B, W, P, D, kv, in_dtype, NP):
     return t
 
 
-def partial_bound(t, H) -> tuple:
+def half_group_case(rng, dev, B, W, P, D, kv, in_dtype, NP):
+    """partial_case on overcommit's page table: every row two independent
+    half-groups of W/2 pages, a row whose context fits its first half
+    repeating that half ("ungrown"); slot 7 dead with a stale ring_start
+    of 5."""
+    t = partial_case(rng, dev, B, W, P, D, kv, in_dtype, NP)
+    Hp = W // 2
+    rs = t["rs"].cpu().numpy()
+    units = rng.permutation(NP // Hp)
+    table = np.zeros((B, W), np.int32)
+    for b in range(B):
+        first = units[2 * b] * Hp + np.arange(Hp)
+        grown = rs[b] + 4 > Hp * P
+        second = units[2 * b + 1] * Hp + np.arange(Hp) if grown else first
+        table[b] = np.concatenate([first, second])
+    t["table"] = torch.from_numpy(table).to(dev)
+    t["lengths"][7] = 0
+    t["rs"][7] = 5
+    return t
+
+
+def partial_bound(t, H, per_page_table=False) -> tuple:
     """Least time of one ring-partial call on inputs ``t``: q of the live
     slots, the ceil(ring_start/P) pages each live slot attends over, their
     scales, o/m/l written, lengths, ring_start and one table entry per slot
-    read; 4 f32 operations per context row per feature."""
+    (``per_page_table``: per page read) read; 4 f32 operations per context
+    row per feature."""
     B, D = t["q"].shape
     _, _, P, Dk = t["pool"].shape
     W = t["table"].shape[1]
@@ -311,17 +359,19 @@ def partial_bound(t, H) -> tuple:
     nbytes = ((lens > 0).sum() * D * t["q"].element_size()
               + pages * 2 * P * Dk * t["pool"].element_size()
               + (2 * pages * 4 if t["ks"] is not None else 0)
-              + B * (D + 2 * H) * 4 + 3 * B * 4)
+              + B * (D + 2 * H) * 4 + 2 * B * 4
+              + (pages if per_page_table else B) * 4)
     return bound_of(nbytes, 4 * int(rs.sum()) * D)
 
 
 def check_partial(name, kind, t, H, timed, tol=1e-4):
-    """Ring-partial kernel (``kind``: "grouped" mode c or "dgrid") vs its
-    plain version on the inputs ``t``: o, m and l within
+    """Ring-partial kernel (``kind``: "grouped" mode c, "dgrid" or "flat")
+    vs its plain version on the inputs ``t``: o, m and l within
     tol * max(1, |x|max) (float32 sums in another order); rows without
     context (dead, ring_start == 0) exactly o = 0, m = -inf, l = 0; the
     pool unchanged."""
     from min_llm_inference_tpu_torch.ops import paged_attention_dgrid as dg
+    from min_llm_inference_tpu_torch.ops import paged_attention_flat as fl
     from min_llm_inference_tpu_torch.ops import paged_attention_grouped as gr
 
     P = t["pool"].shape[2]
@@ -331,6 +381,12 @@ def check_partial(name, kind, t, H, timed, tol=1e-4):
         kw = dict(ring_start=t["rs"], n_heads=H, packed_int4=t["packed"])
         kernel = gr.paged_decode_attention_grouped
         plain = gr.paged_decode_attention_grouped_plain
+    elif kind == "flat":
+        args = (t["q"], t["pool"], t["lengths"], t["table"], t["ks"],
+                t["vs"], t["rs"])
+        kw = dict(n_heads=H, packed_int4=t["packed"])
+        kernel = fl.paged_decode_attention_flat
+        plain = fl.paged_decode_attention_flat_plain
     else:
         args = (t["q"], t["pool"], t["ks"], t["vs"], t["rs"], t["lengths"],
                 t["table"])
@@ -358,7 +414,7 @@ def check_partial(name, kind, t, H, timed, tol=1e-4):
     res = {"max_abs_err": err}
     if timed:
         timed_pair(res, lambda: kernel(*args, **kw), lambda: plain(*args, **kw),
-                   partial_bound(t, H))
+                   partial_bound(t, H, per_page_table=kind == "flat"))
         lens = t["lengths"].cpu().numpy()
         rs = t["rs"].cpu().numpy()[lens > 0]
         res["live_slots"] = int((lens > 0).sum())
@@ -601,6 +657,44 @@ def check_one_slot(name, t, H, timed, tol=1e-4):
     return res
 
 
+def check_probe(dev):
+    """The int4 probe through its entry point (strict: it raises unless the
+    kernel ran and equals its plain version), with every launch counter
+    set to 0 just before it; then its kernel vs the plain version (exactly
+    equal: every sum of quarter-integer products is exact in float32),
+    timed beside its bound and beside ``torch.matmul`` on the dequantized
+    page, which leaves out the unpack. Returns (entry-point launches,
+    result)."""
+    from min_llm_inference_tpu_torch.ops.quant import unpack_int4
+    from min_llm_inference_tpu_torch.tools import int4_probe as pr
+
+    kernels = counters()
+    for k in kernels.values():
+        k.launches = 0
+    pr.probe(dev, strict=True)
+    launches = kernels["int4_page_self_dot"].launches
+    if launches != 1 or sum(k.launches for k in kernels.values()) != 1:
+        raise AssertionError(f"probe launches {launches}")
+    x = pr.make_pages(1).to(dev)
+    got = pr.int4_page_self_dot(x)
+    want = pr.int4_page_self_dot_plain(x)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("int4 probe: kernel differs from the plain "
+                             "version")
+    n, P, Dk = x.shape
+    D = 2 * Dk
+    res = {"max_abs_err": 0.0}
+    # page 0 read once, [P, P] f32 written; P*P*D multiply-adds
+    timed_pair(res, lambda: pr.int4_page_self_dot(x),
+               lambda: pr.int4_page_self_dot_plain(x),
+               bound_of(P * Dk + P * P * 4, 2 * P * P * D))
+    xf = unpack_int4(x[0], 1) * pr.SCALE
+    res["library_ms"] = time_ms(lambda: torch.matmul(xf, xf.t()), 20)
+    log_result("int4-probe", {"out": "equal"}, res)
+    return launches, res
+
+
 # ---------------------------------------------------------------- phases 4-6
 
 
@@ -646,15 +740,17 @@ def make_store(T, prompts):
     return store
 
 
-def parity(T, dev, model, params, cfg, prompts, label) -> int:
+def parity(T, dev, model, params, cfg, prompts, label):
     """The engine's kernel path ("grouped") against its gather oracle
     ("torch", which never takes the ring), token for token. Returns the
-    generated token count."""
-    outs = {}
+    generated token count and the kernel path's stats."""
+    outs, stats = {}, None
     for impl in ("grouped", "torch"):
         store = make_store(T, prompts)
-        T.AutonomousEngine(params, model, cfg, attention_impl=impl,
-                           device=dev).run(store)
+        eng = T.AutonomousEngine(params, model, cfg, attention_impl=impl,
+                                 device=dev)
+        eng.run(store)
+        stats = stats or eng.stats
         outs[impl] = [store.finished[i].tokens for i in range(len(prompts))]
     if outs["grouped"] != outs["torch"]:
         first = next(i for i in range(len(prompts))
@@ -662,7 +758,7 @@ def parity(T, dev, model, params, cfg, prompts, label) -> int:
         raise AssertionError(f"engine parity {label}: request {first} "
                              f"{outs['grouped'][first]} vs "
                              f"{outs['torch'][first]}")
-    return sum(len(o) - len(p) for o, p in zip(outs["grouped"], prompts))
+    return sum(len(o) - len(p) for o, p in zip(outs["grouped"], prompts)), stats
 
 
 def engine_parity(T, dev) -> int:
@@ -683,7 +779,7 @@ def engine_parity(T, dev) -> int:
         cfg = T.EngineConfig(n_slots=8, page_size=16, n_pages=32,
                              n_forward_rounds=4, subbursts=2, kv_dtype=kv,
                              decode_ring=False)
-        n_gen = parity(T, dev, model, params, cfg, prompts, kv)
+        n_gen, _ = parity(T, dev, model, params, cfg, prompts, kv)
         log("engine", kv=kv, requests=len(prompts), generated=n_gen,
             tokens="grouped == torch")
     # ring decode on a small gpt2s-shaped model (multi-head, LN, wo, FFN)
@@ -705,7 +801,7 @@ def engine_parity(T, dev) -> int:
         for c in counters:
             c.launches = 0
         label = f"ring-{kv}-" + "-".join(f"{k}={v}" for k, v in extra.items())
-        n_gen = parity(T, dev, gmodel, gparams, cfg, prompts, label)
+        n_gen, _ = parity(T, dev, gmodel, gparams, cfg, prompts, label)
         got = [c.launches for c in counters]
         if (got[1] > 0) != cfg.attn_dgrid or got[2] == 0 or (
                 (got[0] > 0) == cfg.attn_dgrid):
@@ -716,6 +812,78 @@ def engine_parity(T, dev) -> int:
             tokens="grouped == torch",
             launches_grouped_dgrid_flush_prefill="/".join(map(str, got)))
     return mode_c
+
+
+def variant_parity(T, dev) -> int:
+    """Phase 4, the rest of AutonomousEngine's options: ring decode on the
+    flat partial (f32, int8, int4 KV; 1 and 2 heads) and on the dense view
+    (f32, int8, int4), and overcommit with forced preemption (4 half-groups
+    for 8 slots whose requests run to the cap) without the ring, with the
+    ring on mode (c) and on the flat partial (f32, int8). Each kernel path
+    equals the gather oracle token for token and launches its attention
+    kernel once per round and layer (the dense view is plain PyTorch and
+    launches none); every overcommit config preempts. Returns the flat
+    kernel's launches."""
+    kernels = counters()
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 255, int(rng.integers(1, 24))).tolist()
+               for _ in range(24)]
+    # tiny prompts on a model without an EOF bias: they run to the 64-token
+    # cap, every slot needs both halves, so growth must preempt
+    capped = [rng.integers(0, 254, 2).tolist() for _ in range(12)]
+    models = {}
+    for H, emb, eof_bias in ((1, 32, 0.05), (2, 32, 0.05), ("oc", 64, 0.0)):
+        m = T.ModelConfig(n_vocab=256, emb_dim=emb, n_seq=64, eof_token_id=255,
+                          n_heads=1 if H == "oc" else H)
+        models[H] = (m, T.params_from_numpy(numpy_init_params(
+            np.random.default_rng(emb + len(models)), m, eof_bias), m, dev))
+    base = dict(n_slots=8, page_size=16, n_pages=32, n_forward_rounds=4)
+    cases = []
+    for H in (1, 2):
+        for kv in ("float32", "int8", "int4"):
+            cases.append((f"ring-flat-{kv}-H{H}", H, prompts, dict(
+                kv_dtype=kv, decode_ring=True, attn_flat=True, subbursts=2),
+                "paged_decode_attention_flat"))
+    for kv in ("float32", "int8", "int4"):
+        cases.append((f"ring-dense-{kv}", 2, prompts, dict(
+            kv_dtype=kv, decode_ring=True, attn_dense=True), None))
+    for kv in ("float32", "int8"):
+        for ring, extra, kname in (
+                ("no-ring", dict(decode_ring=False),
+                 "paged_decode_attention_grouped"),
+                ("ring-c", dict(decode_ring=True),
+                 "paged_decode_attention_grouped"),
+                ("ring-flat", dict(decode_ring=True, attn_flat=True),
+                 "paged_decode_attention_flat")):
+            cases.append((f"overcommit-{ring}-{kv}", "oc", capped, dict(
+                kv_dtype=kv, n_pages=8, init_num_pages=2, overcommit=True,
+                **extra), kname))
+    attention = ("paged_decode_attention_grouped",
+                 "paged_decode_attention_flat", "dgrid_paged_partial",
+                 "paged_decode_attention")
+    flat = 0
+    for label, H, ps, extra, kname in cases:
+        model, params = models[H]
+        cfg = T.EngineConfig(**{**base, **extra})
+        for k in kernels.values():
+            k.launches = 0
+        n_gen, st = parity(T, dev, model, params, cfg, ps, label)
+        got = {n: kernels[n].launches for n in attention}
+        want = {n: 0 for n in attention}
+        if kname:
+            want[kname] = st.rounds * model.n_layers
+        flushes = kernels["ring_flush"].launches
+        if got != want or (flushes > 0) != cfg.decode_ring or (
+                cfg.overcommit and st.preemptions == 0):
+            raise AssertionError(
+                f"{label}: attention launches {got}, expected {want}; "
+                f"{flushes} flushes; {st.preemptions} preemptions")
+        flat += got["paged_decode_attention_flat"]
+        log("engine", case=label, requests=len(ps), generated=n_gen,
+            tokens="grouped == torch", rounds=st.rounds,
+            preemptions=st.preemptions, flushes=flushes,
+            **{f"launches_{n}": v for n, v in got.items() if v})
+    return flat
 
 
 def host_parity(T, dev) -> int:
@@ -800,18 +968,21 @@ def host_parity(T, dev) -> int:
 
 def counters():
     """The launch counter of every kernel wrapper, by kernel name."""
+    from min_llm_inference_tpu_torch.ops import paged_attention as pa
     from min_llm_inference_tpu_torch.ops import paged_attention_dgrid as dg
+    from min_llm_inference_tpu_torch.ops import paged_attention_flat as fl
     from min_llm_inference_tpu_torch.ops import paged_attention_grouped as gr
     from min_llm_inference_tpu_torch.ops import prefill_scatter as ps
     from min_llm_inference_tpu_torch.ops import ring_flush as rf
-
-    from min_llm_inference_tpu_torch.ops import paged_attention as pa
+    from min_llm_inference_tpu_torch.tools import int4_probe as pr
 
     return {"paged_decode_attention_grouped": gr.paged_decode_attention_grouped,
             "dgrid_paged_partial": dg.dgrid_paged_partial,
             "ring_flush": rf.ring_flush,
             "prefill_quant_scatter": ps.prefill_quant_scatter,
-            "paged_decode_attention": pa.paged_decode_attention}
+            "paged_decode_attention": pa.paged_decode_attention,
+            "paged_decode_attention_flat": fl.paged_decode_attention_flat,
+            "int4_page_self_dot": pr.int4_page_self_dot}
 
 
 def make_prompts(n, seed, V):
@@ -892,36 +1063,58 @@ def check_outputs(store, n_req, S, V):
     return total
 
 
-def main_path(T, dev, gpu_line, profile_dir=None):
+def ref_model_run(T, dev, label, **cfg_kw):
+    """The reference-parity model, request stream and engine options of
+    phase 5 under the engine options ``cfg_kw``: (model, cfg, run(n, seed,
+    count_syncs)), after the warm run's sync check."""
     V, D, S = MAIN["n_vocab"], MAIN["emb_dim"], MAIN["n_seq"]
-    n_req = MAIN["requests"]
     model = T.ModelConfig(n_vocab=V, emb_dim=D, n_seq=S, eof_token_id=V - 1,
                           dtype="bfloat16")
-    cfg = T.EngineConfig(n_slots=MAIN["n_slots"], n_pages=MAIN["n_pages"],
-                         n_forward_rounds=16, page_size=MAIN["page_size"],
-                         init_num_pages=2, kv_dtype="int4",
-                         max_prefill_batch=128, decode_ring=False,
-                         subbursts=2)
+    cfg = T.EngineConfig(**{**dict(
+        n_slots=MAIN["n_slots"], n_pages=MAIN["n_pages"],
+        n_forward_rounds=16, page_size=MAIN["page_size"], init_num_pages=2,
+        max_prefill_batch=128, subbursts=2), **cfg_kw})
     params = T.params_from_numpy(
         bench_params(np.random.default_rng(0), V, D, S, V - 1), model, dev)
     engine_kw = dict(max_new_per_burst=512, bursts_per_chunk=24,
-                     request_capacity=n_req)
+                     request_capacity=MAIN["requests"])
 
     def run(n, seed, count_syncs=False):
         return drive(T, dev, params, model, cfg, n, seed, engine_kw,
                      count_syncs)
 
-    warm_and_check_syncs(run, "main")
+    warm_and_check_syncs(run, label)
+    return model, cfg, run
+
+
+def timed_run(run, n_req, want_of, label):
+    """The timed run of a path (``n_req`` requests, seed 2): every launch
+    counter set to 0 just before it, read just after and held against ``want_of(stats)`` (launches by
+    kernel name; every kernel not named must launch 0 times). Returns
+    (engine, store, wall, launches)."""
     kernels = counters()
     for k in kernels.values():
         k.launches = 0
     eng, store, wall = run(n_req, seed=2)
-    launches = kernels["paged_decode_attention_grouped"].launches
+    launches = {name: k.launches for name, k in kernels.items()}
+    want = {name: 0 for name in kernels}
+    want.update(want_of(eng.stats))
+    if launches != want or 0 in want_of(eng.stats).values():
+        raise AssertionError(f"{label} launches {launches}, expected {want}")
+    return eng, store, wall, launches
+
+
+def main_path(T, dev, gpu_line, profile_dir=None):
+    """Phase 5: the reference path at full width. Returns (the fused-write
+    kernel's launches in the timed run, the replayed call's result)."""
+    model, cfg, run = ref_model_run(T, dev, "main", kv_dtype="int4",
+                                    decode_ring=False)
+    D, S, n_req = model.emb_dim, model.n_seq, MAIN["requests"]
+    eng, store, wall, counts = timed_run(run, n_req, lambda st: {
+        "paged_decode_attention_grouped": st.rounds * model.n_layers}, "main")
+    launches = counts["paged_decode_attention_grouped"]
     st = eng.stats
-    total = check_outputs(store, n_req, S, V)
-    if launches != st.rounds * model.n_layers or launches == 0:
-        raise AssertionError(f"kernel launches {launches} != rounds "
-                             f"{st.rounds} x layers {model.n_layers}")
+    total = check_outputs(store, n_req, S, model.n_vocab)
     # the kernel's bound over the whole run, from the contexts its calls
     # saw: a request is live in the calls at lengths plen .. final-1
     ctx = np.concatenate([np.arange(r.prompt_len, len(r.tokens))
@@ -979,23 +1172,12 @@ def gpt2s_path(T, dev, gpu_line, profile_dir=None):
                      count_syncs)
 
     warm_and_check_syncs(run, "gpt2s")
-    kernels = counters()
-    for k in kernels.values():
-        k.launches = 0
-    eng, store, wall = run(n_req, seed=2)
-    launches = {name: k.launches for name, k in kernels.items()}
+    eng, store, wall, launches = timed_run(run, n_req, lambda st: {
+        "dgrid_paged_partial": st.rounds * L,
+        "ring_flush": (st.bursts - st.skipped) * L,
+        "prefill_quant_scatter": st.prefills * L}, "gpt2s")
     st = eng.stats
     total = check_outputs(store, n_req, S, V)
-    executed = st.bursts - st.skipped
-    want = {"dgrid_paged_partial": st.rounds * L,
-            "ring_flush": executed * L,
-            "prefill_quant_scatter": st.prefills * L,
-            "paged_decode_attention_grouped": 0,
-            "paged_decode_attention": 0}
-    if launches != want or 0 in (st.rounds, executed, st.prefills):
-        raise AssertionError(f"gpt2s launches {launches}, expected {want} "
-                             f"(rounds {st.rounds}, executed bursts "
-                             f"{executed}, prefills {st.prefills})")
     log("gpt2s", requests=n_req, generated=total, wall_s=f"{wall:.4f}",
         tok_s=f"{total / wall:.1f}", gpu=f"'{gpu_line}'",
         bursts=st.bursts, skipped=st.skipped, rounds=st.rounds,
@@ -1145,6 +1327,88 @@ def host_path(T, dev, gpu_line, profile_dir=None):
     return launches, res
 
 
+def flat_path(T, dev, gpu_line, profile_dir=None):
+    """Phase 8: the reference model with int4 KV on the decode ring (one
+    ring across 2 sub-bursts, one flush per burst) and the flat partial.
+    Returns (launches by kernel name of the timed run, {kernel name:
+    replayed-call result})."""
+    model, cfg, run = ref_model_run(
+        T, dev, "flat", kv_dtype="int4", decode_ring=True, burst_flush=True,
+        attn_flat=True)
+    L = model.n_layers
+    eng, store, wall, launches = timed_run(run, MAIN["requests"], lambda st: {
+        "paged_decode_attention_flat": st.rounds * L,
+        "ring_flush": (st.bursts - st.skipped) * L}, "flat")
+    st = eng.stats
+    total = check_outputs(store, MAIN["requests"], model.n_seq, model.n_vocab)
+    log("flat", requests=MAIN["requests"], generated=total,
+        wall_s=f"{wall:.4f}", tok_s=f"{total / wall:.1f}",
+        gpu=f"'{gpu_line}'", bursts=st.bursts, skipped=st.skipped,
+        rounds=st.rounds, prefills=st.prefills,
+        host_syncs_per_burst=f"{st.host_syncs / st.bursts:.3f}",
+        **{f"launches_{k}": v for k, v in launches.items() if v})
+    # the middle flat and flush calls of that run, replayed on their inputs
+    n_flat = launches["paged_decode_attention_flat"]
+    n_flush = launches["ring_flush"]
+    snaps = capture_calls(lambda: run(MAIN["requests"], seed=2), {
+        "flat": ("models.paged", "paged_decode_attention_flat", n_flat // 2),
+        "flush": ("runtime.autonomous", "ring_flush", n_flush // 2)})
+    args, kw = snaps["flat"]
+    names = ("q", "pool", "lengths", "table", "ks", "vs", "rs")
+    res = {"paged_decode_attention_flat": check_partial(
+        f"flat-call-{n_flat // 2}", "flat",
+        {**dict(zip(names, args)), "packed": kw["packed_int4"]},
+        kw["n_heads"], timed=True)}
+    args, kw = snaps["flush"]
+    res["ring_flush"] = check_flush(
+        f"flat-flush-call-{n_flush // 2}",
+        dict(zip(("pool", "ring", "rs", "lengths", "table"), args),
+             n_rounds=kw["n_rounds"], r0=kw["ring_r0"]), timed=True)
+    if profile_dir:
+        profile_path(lambda: run(MAIN["requests"], seed=2), profile_dir, wall,
+                     "flat")
+    return launches, res
+
+
+def overcommit_path(T, dev, gpu_line, profile_dir=None):
+    """Phase 9: the reference model with int8 KV, no ring, under
+    overcommit on OVERCOMMIT_PAGES pages. The timed run must preempt.
+    Returns (launches by kernel name of the timed run, the replayed
+    fused-write call's result, preemptions)."""
+    model, cfg, run = ref_model_run(
+        T, dev, "overcommit", kv_dtype="int8", decode_ring=False,
+        overcommit=True, n_pages=OVERCOMMIT_PAGES)
+    L = model.n_layers
+    eng, store, wall, launches = timed_run(run, MAIN["requests"], lambda st: {
+        "paged_decode_attention_grouped": st.rounds * L,
+        "prefill_quant_scatter": st.prefills * L}, "overcommit")
+    st = eng.stats
+    total = check_outputs(store, MAIN["requests"], model.n_seq, model.n_vocab)
+    units = cfg.n_pages // (cfg.pages_per_slot(model.n_seq) // 2)
+    log("overcommit", requests=MAIN["requests"], generated=total,
+        wall_s=f"{wall:.4f}", tok_s=f"{total / wall:.1f}",
+        gpu=f"'{gpu_line}'", pages=cfg.n_pages, half_units=units,
+        slots=cfg.n_slots, preemptions=st.preemptions, bursts=st.bursts,
+        skipped=st.skipped, rounds=st.rounds, prefills=st.prefills,
+        host_syncs_per_burst=f"{st.host_syncs / st.bursts:.3f}",
+        **{f"launches_{k}": v for k, v in launches.items() if v})
+    if st.preemptions == 0:
+        raise AssertionError(f"overcommit on {cfg.n_pages} pages never "
+                             "preempted")
+    n_call = launches["paged_decode_attention_grouped"] // 2
+    snaps = capture_calls(lambda: run(MAIN["requests"], seed=2), {
+        "grouped": ("models.paged", "paged_decode_attention_grouped",
+                    n_call)})
+    args, kw = snaps["grouped"]
+    names = ("q", "pool", "lengths", "table", "ks", "vs", "k_new", "v_new")
+    res = check_grouped(f"overcommit-call-{n_call}",
+                        dict(zip(names, args), kw=kw), timed=True)
+    if profile_dir:
+        profile_path(lambda: run(MAIN["requests"], seed=2), profile_dir, wall,
+                     "overcommit")
+    return launches, res, st.preemptions
+
+
 def phase_seconds(stats) -> str:
     """The engine's host seconds per phase (utils.profiling.phase), e.g.
     ``forward:0.41,process_results:0.52``; ``forward`` is the enqueue of
@@ -1233,14 +1497,20 @@ def profile_path(run, out_dir, wall_unprofiled, label):
 # ---------------------------------------------------------------- main
 
 
+JAX_OPS = "min_llm_inference_tpu/ops"
 SOURCES = {
     "paged_decode_attention_grouped": (
-        "paged_attention_grouped.cu", "paged_attention_grouped.py:645"),
+        "paged_attention_grouped.cu", f"{JAX_OPS}/paged_attention_grouped.py:645"),
     "dgrid_paged_partial": (
-        "paged_attention_dgrid.cu", "paged_attention_dgrid.py:195"),
-    "ring_flush": ("ring_flush.cu", "ring_flush.py:131"),
-    "prefill_quant_scatter": ("prefill_scatter.cu", "prefill_scatter.py:93"),
-    "paged_decode_attention": ("paged_attention.cu", "paged_attention.py:250"),
+        "paged_attention_dgrid.cu", f"{JAX_OPS}/paged_attention_dgrid.py:195"),
+    "ring_flush": ("ring_flush.cu", f"{JAX_OPS}/ring_flush.py:131"),
+    "prefill_quant_scatter": ("prefill_scatter.cu",
+                              f"{JAX_OPS}/prefill_scatter.py:93"),
+    "paged_decode_attention": ("paged_attention.cu",
+                               f"{JAX_OPS}/paged_attention.py:250"),
+    "paged_decode_attention_flat": (
+        "paged_attention_flat.cu", f"{JAX_OPS}/paged_attention_flat.py:337"),
+    "int4_page_self_dot": ("int4_probe.cu", "tools/int4_probe.py:25"),
 }
 
 
@@ -1248,11 +1518,10 @@ def kernel_entry(name, launches, errs, res, **extra):
     src, tpu = SOURCES[name]
     return {"name": name, "route": "cuda",
             "source": f"min_llm_inference_tpu_torch/csrc/{src}",
-            "replaces": f"min_llm_inference_tpu/ops/{tpu}",
-            "launches": launches, "max_abs_err": max(errs),
+            "replaces": tpu, "launches": launches, "max_abs_err": max(errs),
             "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-            "library_ms": None, **extra}
+            "library_ms": res.get("library_ms"), **extra}
 
 
 def main() -> int:
@@ -1372,8 +1641,34 @@ def main() -> int:
             rng, dev, 16, 4, 8, D, "float32", torch.float32, 16 * 4 + 3,
             boundary=True), H, timed=False)
         errs["paged_decode_attention"].append(r["max_abs_err"])
+    # the flat ring partial at the gpt2s path's shapes (int8, 12 heads),
+    # at the reference ring's (1024 slots, packed int4, emb 2048, one
+    # head), and small: full groups and overcommit's half-group rows
+    flat_rand = {
+        "gpt2s": check_partial(
+            "gpt2s-flat-int8", "flat", partial_case(
+                rng, dev, *gshape, "int8", torch.bfloat16, g["n_pages"]),
+            g["n_heads"], timed=True),
+        "ref": check_partial(
+            "ref-flat-int4", "flat", partial_case(
+                rng, dev, *shape[:4], "int4", torch.bfloat16,
+                MAIN["n_pages"]), 1, timed=True)}
+    errs["paged_decode_attention_flat"] += [
+        r["max_abs_err"] for r in flat_rand.values()]
+    for kv in ("float32", "int8", "int4"):
+        for H, D in ((1, 32), (2, 32), (12, 96)):
+            for table, make in (("groups", partial_case),
+                                ("half", half_group_case)):
+                r = check_partial(
+                    f"small-flat-H{H}-{kv}-{table}", "flat",
+                    make(rng, dev, 16, 4, 8, D, kv, torch.float32, 18 * 4),
+                    H, timed=False)
+                errs["paged_decode_attention_flat"].append(r["max_abs_err"])
+    probe_launches, probe_res = check_probe(dev)
+    errs["int4_page_self_dot"].append(probe_res["max_abs_err"])
 
     mode_c_engine = engine_parity(T, dev)
+    flat_engine = variant_parity(T, dev)
     one_slot_engine = host_parity(T, dev)
     # ms, plain_ms and bound_ms: one call of each path replayed on its real
     # inputs; launches: each path's timed run
@@ -1385,6 +1680,12 @@ def main() -> int:
     h_launches, h_res = host_path(T, dev, gpu_line, args.profile)
     for name, r in h_res.items():
         errs[name].append(r["max_abs_err"])
+    f_launches, f_res = flat_path(T, dev, gpu_line, args.profile)
+    for name, r in f_res.items():
+        errs[name].append(r["max_abs_err"])
+    o_launches, o_res, preemptions = overcommit_path(T, dev, gpu_line,
+                                                     args.profile)
+    errs["paged_decode_attention_grouped"].append(o_res["max_abs_err"])
 
     entries = [kernel_entry(
         "paged_decode_attention_grouped", ref_launches,
@@ -1399,7 +1700,11 @@ def main() -> int:
         mode_c_gpt2s_int4_ms=mode_c["int4"]["ms"],
         mode_c_gpt2s_int4_plain_ms=mode_c["int4"]["plain_ms"],
         mode_c_gpt2s_int4_bound_ms=mode_c["int4"]["bound_ms"],
-        mode_c_engine_parity_launches=mode_c_engine)]
+        mode_c_engine_parity_launches=mode_c_engine,
+        overcommit_launches=o_launches["paged_decode_attention_grouped"],
+        overcommit_preemptions=preemptions, overcommit_ms=o_res["ms"],
+        overcommit_plain_ms=o_res["plain_ms"],
+        overcommit_bound_ms=o_res["bound_ms"])]
     rand = {"dgrid_paged_partial": dgrid_rand, "ring_flush": flush_rand,
             "prefill_quant_scatter": prefill_rand}
     for name in ("dgrid_paged_partial", "ring_flush", "prefill_quant_scatter"):
@@ -1411,7 +1716,13 @@ def main() -> int:
                          host_bound_ms=hp["bound_ms"],
                          random_128x128x2048_ms=prefill_host["ms"],
                          random_128x128x2048_plain_ms=prefill_host["plain_ms"],
-                         random_128x128x2048_bound_ms=prefill_host["bound_ms"])
+                         random_128x128x2048_bound_ms=prefill_host["bound_ms"],
+                         overcommit_launches=o_launches[name])
+        if name == "ring_flush":
+            fp = f_res[name]
+            extra = dict(flat_launches=f_launches[name], flat_ms=fp["ms"],
+                         flat_plain_ms=fp["plain_ms"],
+                         flat_bound_ms=fp["bound_ms"])
         entries.append(kernel_entry(
             name, g_launches[name], errs[name], g_res[name],
             random_ms=rand[name]["ms"], random_bound_ms=rand[name]["bound_ms"],
@@ -1425,6 +1736,17 @@ def main() -> int:
         random_ms=one_rand["ms"], random_plain_ms=one_rand["plain_ms"],
         random_bound_ms=one_rand["bound_ms"],
         engine_parity_launches=one_slot_engine))
+    fr = f_res["paged_decode_attention_flat"]
+    entries.append(kernel_entry(
+        "paged_decode_attention_flat", f_launches["paged_decode_attention_flat"],
+        errs["paged_decode_attention_flat"], fr,
+        live_slots=fr["live_slots"],
+        mean_live_ring_start=fr["mean_live_ring_start"],
+        **{f"random_{k}_{n}": flat_rand[k][n] for k in flat_rand
+           for n in ("ms", "plain_ms", "bound_ms")},
+        engine_parity_launches=flat_engine))
+    entries.append(kernel_entry("int4_page_self_dot", probe_launches,
+                                errs["int4_page_self_dot"], probe_res))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

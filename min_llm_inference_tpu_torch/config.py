@@ -2,9 +2,9 @@
 
 Same fields, defaults and ``validate()`` as min_llm_inference_tpu/config.py,
 so a JAX config converts field for field (``EngineConfig(**asdict(cfg))``).
-Options the port does not run yet (overcommit, the dense and flat ring
-formulations) are still accepted here and rejected by the engine that would
-run them.
+The port's engines run every option. ``pages_per_dma``,
+``attn_group_size`` and ``dgrid_block`` chose the TPU kernels' DMA runs
+and blocks: they are accepted and validated, and nothing here reads them.
 """
 
 from __future__ import annotations

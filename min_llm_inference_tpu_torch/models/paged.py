@@ -44,7 +44,9 @@ import torch
 from ..config import EngineConfig, ModelConfig, resolve_device
 from ..ops.indexing import index_set_drop_
 from ..ops.paged_attention import paged_decode_attention
+from ..ops.paged_attention_dense import dense_paged_partial
 from ..ops.paged_attention_dgrid import dgrid_paged_partial
+from ..ops.paged_attention_flat import paged_decode_attention_flat
 from ..ops.paged_attention_grouped import paged_decode_attention_grouped
 from ..ops.prefill_scatter import prefill_quant_scatter
 from ..ops.quant import (
@@ -574,17 +576,20 @@ def make_ring_round_callbacks(
     ring_r0=None,
     n_heads=None,
 ):
-    """Ring-mode (write_kv, attend) for ONE decode round of a burst, over
-    full-grant page-group rows.
+    """Ring-mode (write_kv, attend) for ONE decode round of a burst.
 
     write_kv quantizes the K|V row in plain PyTorch against its page's
     (just updated) scale, records the scale in the [B, 128] column buffer
     (column r = K, 64 + r = V) and writes ring column ``round_idx``; int4
     rows stay unpacked (the flush packs them once per burst). attend takes
-    the page partial from ``dgrid_paged_partial`` (``attn_dgrid``) or the
-    grouped kernel's mode (c), both reading the pool read-only, and merges
-    the ring's rows into it. ``ring_r0`` [B] i32: the first valid ring
-    column per slot (None = 0)."""
+    the page partial, the pool read-only, in the JAX engine's order of
+    formulations: ``dgrid_paged_partial`` (``attn_dgrid``), the dense view
+    (``attn_dense``; both need full-grant group rows), the flat kernel
+    (``attn_flat``), else the grouped kernel's mode (c); then merges the
+    ring's rows into it. The flat and grouped kernels read one page id per
+    page, so overcommit's half-group rows need no run limit
+    (``max_run_pages`` of the JAX kernels). ``ring_r0`` [B] i32: the first
+    valid ring column per slot (None = 0)."""
     P = engine_cfg.page_size
     NP = engine_cfg.n_pages
     heads = n_heads or model_cfg.n_heads
@@ -620,6 +625,14 @@ def make_ring_round_callbacks(
             o_p, m_p, l_p = dgrid_paged_partial(
                 q, kv_pages[li], ks, vs, ring_start, lens, page_table,
                 n_heads=heads, page_size=P)
+        elif engine_cfg.attn_dense:
+            o_p, m_p, l_p = dense_paged_partial(
+                q, kv_pages[li], ks, vs, ring_start, lens, page_table,
+                n_heads=heads, page_size=P, packed_int4=engine_cfg.kv_packed)
+        elif engine_cfg.attn_flat:
+            o_p, m_p, l_p = paged_decode_attention_flat(
+                q, kv_pages[li], lens, page_table, ks, vs, ring_start,
+                n_heads=heads, packed_int4=engine_cfg.kv_packed)
         else:
             o_p, m_p, l_p = paged_decode_attention_grouped(
                 q, kv_pages[li], lens, page_table, ks, vs,

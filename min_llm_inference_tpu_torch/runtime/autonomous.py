@@ -1,30 +1,42 @@
 """Device-resident continuous batching: the scheduler runs on the device.
 
-Counterpart of min_llm_inference_tpu/runtime/autonomous.py, full-grant
-path. The request queue (padded prompts + lengths) is uploaded once; each
-burst frees dead slots' page groups (vectorized stack push), admits
-queue-head requests into dead slots (vectorized stack pop, one contiguous
-W-page group per slot), prefills them, runs n_forward_rounds of greedy
-decode and scatters the tokens into a device-resident output buffer. The
-host reads a 5-int status once per chunk of bursts and the outputs once at
-the end.
+Counterpart of min_llm_inference_tpu/runtime/autonomous.py. The request
+queue (padded prompts + lengths) is uploaded once; each burst frees dead
+slots' pages (vectorized stack push), admits queue-head requests into dead
+slots (vectorized stack pop), prefills them, runs n_forward_rounds of
+greedy decode and scatters the tokens into a device-resident output
+buffer. The host reads a 5-int status once per chunk of bursts and the
+outputs once at the end.
+
+Admission policy (``EngineConfig.overcommit``):
+  * full grant (default): a slot gets one contiguous W-page group at
+    admission, no growth or preemption;
+  * overcommit: half-group grants (W/2 contiguous pages), growth before a
+    slot crosses into its second half (a lookahead of the sub-burst's
+    rounds), youngest-first preemption when the pool runs dry, and a
+    device retry stack (LIFO) that re-admits preempted requests before the
+    queue head. Greedy decode makes recompute after preemption invisible
+    in the outputs. A device-side count of preemptions rides out with the
+    final output read.
 
 Ring decode (``decode_ring`` on the ``grouped`` path): each round's K/V
 rows go to a per-layer ring instead of the pool; the pool is read-only
 during the rounds and the ring is flushed into the pages once per
 sub-burst, or once per burst when ``burst_flush`` carries one ring across
 ``subbursts > 1`` (ring columns then index the absolute round and
-``ring_r0`` marks each admittee's first column). ``sort_admits`` orders
-each admitted wave by prompt length before slots and groups are assigned.
+``ring_r0`` marks each admittee's first column). The page partial comes
+from dgrid, the dense view, the flat kernel or the grouped kernel's mode
+(c) (models/paged.make_ring_round_callbacks). ``sort_admits`` orders each
+full-grant admitted wave by prompt length before slots and groups are
+assigned.
 
 Host reads inside a burst (each one scalar): the whole-burst liveness gate
 (JAX: ``lax.cond``) and, per sub-burst, the admitted count that picks the
 prefill bucket (JAX: ``lax.switch``). Nothing else in a burst syncs (the
-ring, its flush and the sort included); ``BurstStats.host_syncs`` counts
-every sync of a run.
+ring, its flush, the sort and the overcommit scheduler included);
+``BurstStats.host_syncs`` counts every sync of a run.
 
-Not ported yet (raise NotImplementedError): overcommit, the dense and flat
-ring formulations (attn_dense, attn_flat), sampling, and StreamingSession.
+Not ported yet (raise NotImplementedError): sampling and StreamingSession.
 """
 
 from __future__ import annotations
@@ -64,48 +76,53 @@ class AutoState(NamedTuple):
     rid: torch.Tensor          # [B] i32 request index per slot
     allocated: torch.Tensor    # [B] bool, slot holds pages (needs freeing)
     queue_head: torch.Tensor   # [] i32
-    free_top: torch.Tensor     # [] i32, page_stack[0:free_top] are free groups
-    page_stack: torch.Tensor   # [NP // W] i32 free-list of W-page group ids
+    free_top: torch.Tensor     # [] i32, page_stack[0:free_top] are free units
+    page_stack: torch.Tensor   # [NP // unit] i32 free-list of unit ids (a
+                               # unit: W pages, or W/2 under overcommit)
     out_tokens: torch.Tensor   # [R_total, S] i32 generated tokens by position
     final_lens: torch.Tensor   # [R_total] i32 (0 = unfinished)
+    # --- overcommit only (None under full grant) ---
+    grown: torch.Tensor | None = None        # [B] bool, slot holds 2 halves
+    adm_seq: torch.Tensor | None = None      # [B] i32 admission order
+    seq_ctr: torch.Tensor | None = None      # [] i32
+    retry_stack: torch.Tensor | None = None  # [R_total] i32 preempted rids
+    retry_top: torch.Tensor | None = None    # [] i32
+    preempted: torch.Tensor | None = None    # [] i32 preemptions so far
 
 
 @dataclasses.dataclass
 class BurstStats:
     """What the engine did: bursts dispatched, bursts the liveness gate
     skipped, decode rounds executed, prefill blocks run (one per sub-burst
-    that admitted), and host syncs (the host waiting on the device: scalar
-    and output reads, and the run's two input uploads)."""
+    that admitted), host syncs (the host waiting on the device: scalar and
+    output reads, and the run's two input uploads) and, under overcommit,
+    preemptions (read with the final outputs)."""
 
     bursts: int = 0
     skipped: int = 0
     rounds: int = 0
     prefills: int = 0
     host_syncs: int = 0
+    preemptions: int = 0
 
 
 def _check_supported(engine_cfg: EngineConfig, attention_impl: str) -> None:
     if attention_impl not in ("grouped", "torch"):
         raise ValueError(f"unknown attention_impl {attention_impl!r}")
-    if engine_cfg.overcommit:
-        raise NotImplementedError("overcommit is not ported yet")
-    if engine_cfg.attn_dense or engine_cfg.attn_flat:
-        raise NotImplementedError(
-            "the attn_dense and attn_flat ring formulations are not ported "
-            "yet (attn_dgrid and the grouped kernel are)")
 
 
 def init_auto_state(model_cfg: ModelConfig, engine_cfg: EngineConfig,
                     n_requests: int, device=None) -> AutoState:
-    """Full-grant state: the free list holds W-page group ids and a slot's
-    page-table row is one contiguous group. ``device``: ``cuda`` unless the
-    caller names another (raises without a GPU)."""
-    if engine_cfg.overcommit:
-        raise NotImplementedError("overcommit is not ported yet")
+    """The free list holds unit ids and a slot's page-table row is made of
+    contiguous units: one W-page group under full grant, two W/2-page
+    halves under overcommit (an ungrown slot's second half repeats its
+    first). ``device``: ``cuda`` unless the caller names another (raises
+    without a GPU)."""
     dev = resolve_device(device)
     B = engine_cfg.n_slots
     W = engine_cfg.pages_per_slot(model_cfg.n_seq)
-    NG = engine_cfg.n_pages // W
+    oc = engine_cfg.overcommit
+    NG = engine_cfg.n_pages // (W // 2 if oc else W)
 
     def zeros(*shape, dtype=I32):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -122,21 +139,243 @@ def init_auto_state(model_cfg: ModelConfig, engine_cfg: EngineConfig,
         page_stack=torch.arange(NG, dtype=I32, device=dev),
         out_tokens=zeros(n_requests, model_cfg.n_seq),
         final_lens=zeros(n_requests),
+        grown=zeros(B, dtype=torch.bool) if oc else None,
+        adm_seq=zeros(B) if oc else None,
+        seq_ctr=zeros() if oc else None,
+        retry_stack=zeros(n_requests) if oc else None,
+        retry_top=zeros() if oc else None,
+        preempted=zeros() if oc else None,
     )
 
 
 def _status_of(st: AutoState):
-    """The 5-int status (live, queue head, free groups, retry depth,
-    finished count). Free groups counts the stack plus dead-but-allocated
-    slots, whose groups the next burst frees."""
+    """The 5-int status (live, queue head, free units, retry depth,
+    finished count). Free units counts the stack plus the units of
+    dead-but-allocated slots (two for a grown one), which the next burst
+    frees."""
     dead_alloc = (st.lengths == 0) & st.allocated
+    units = dead_alloc.sum(dtype=I32)
+    if st.grown is not None:
+        units = units + (dead_alloc & st.grown).sum(dtype=I32)
     return torch.stack([
         (st.lengths > 0).sum(dtype=I32),
         st.queue_head,
-        st.free_top + dead_alloc.sum(dtype=I32),
-        torch.zeros_like(st.queue_head),
+        st.free_top + units,
+        torch.zeros_like(st.queue_head) if st.retry_top is None
+        else st.retry_top,
         (st.final_lens > 0).sum(dtype=I32),
     ])
+
+
+class Admission(NamedTuple):
+    """What an admission step hands the rest of a sub-burst: the state's
+    slot fields after freeing, growth, preemption and admission, and the
+    admitted wave ([max_new] rows, the first m of them admitted)."""
+
+    page_table: torch.Tensor
+    lengths: torch.Tensor
+    last_tokens: torch.Tensor
+    rid: torch.Tensor
+    allocated: torch.Tensor
+    queue_head: torch.Tensor
+    free_top: torch.Tensor
+    page_stack: torch.Tensor
+    granted: torch.Tensor      # [max_new, W] page rows of the wave
+    plens: torch.Tensor        # [max_new] prompt lengths (0 = not admitted)
+    prompts: torch.Tensor      # [max_new, S_pre]
+    m: torch.Tensor            # [] admitted count
+    slot_ids: torch.Tensor     # [max_new] slots (B = not admitted)
+    oc: dict                   # the overcommit fields of AutoState
+
+
+def _full_grant_admission(engine_cfg: EngineConfig, max_new: int,
+                          st: AutoState, prompts_all, plens_all,
+                          n_real: int) -> Admission:
+    """Free the page groups of dead-but-allocated slots (group id = first
+    page // W), then pop the queue head into dead slots, one group each."""
+    dev = st.lengths.device
+    B, W = st.page_table.shape
+    NG = engine_cfg.n_pages // W
+    R_total, S_pre = prompts_all.shape
+    j = torch.arange(max_new, dtype=I32, device=dev)
+
+    to_free = (st.lengths == 0) & st.allocated
+    free_ord = torch.cumsum(to_free, 0, dtype=I32) - 1
+    push_pos = torch.where(to_free, st.free_top + free_ord, NG)
+    page_stack = index_set_drop_(st.page_stack.clone(), push_pos,
+                                 st.page_table[:, 0] // W)
+    free_top = st.free_top + to_free.sum(dtype=I32)
+    allocated = st.allocated & ~to_free
+
+    dead = ~allocated
+    m = torch.minimum(dead.sum(dtype=I32).clamp_max(max_new),
+                      torch.minimum(n_real - st.queue_head, free_top))
+    # ascending dead slot ids first (jnp.nonzero(size=B) without a sync)
+    slot_order = torch.sort((~dead).to(torch.int8), stable=True).indices
+    admit = j < m
+    slot_ids = torch.where(admit, slot_order[:max_new].to(I32), B)
+    # rids are global request indices; buffer rows are rid % R_total
+    req_ix = st.queue_head + j
+    req_row = (req_ix % R_total).long()
+    plens = torch.where(admit, plens_all[req_row], 0)
+    if engine_cfg.sort_admits:
+        # the admitted wave in prompt-length order (stable): the admitted
+        # set and the queue advance are unchanged; slots and groups are
+        # assigned in that order (greedy outputs do not depend on them)
+        order = torch.sort(torch.where(admit, plens, 1 << 30),
+                           stable=True).indices
+        req_ix, req_row, plens = req_ix[order], req_row[order], plens[order]
+    prompts = prompts_all[req_row]                      # [max_new, S_pre]
+    # the j-th admitted request pops page_stack[free_top - 1 - j]
+    gids = page_stack[(free_top - 1 - j).clamp(0, NG - 1).long()]
+    granted = gids[:, None] * W + torch.arange(W, dtype=I32, device=dev)
+    page_table = index_set_drop_(st.page_table.clone(), slot_ids, granted)
+    lengths = index_set_drop_(st.lengths.clone(), slot_ids, plens)
+    last_prompt_tok = prompts[j.long(), (plens - 1).clamp(0, S_pre - 1).long()]
+    last_tokens = index_set_drop_(st.last_tokens.clone(), slot_ids,
+                                  last_prompt_tok)
+    rid = index_set_drop_(st.rid.clone(), slot_ids, req_ix)
+    allocated = allocated | index_set_drop_(
+        torch.zeros_like(allocated), slot_ids, torch.ones_like(admit))
+    return Admission(page_table, lengths, last_tokens, rid, allocated,
+                     st.queue_head + m, free_top - m, page_stack, granted,
+                     plens, prompts, m, slot_ids, {})
+
+
+def _overcommit_admission(engine_cfg: EngineConfig, max_new: int, R: int,
+                          st: AutoState, prompts_all, plens_all,
+                          n_real: int) -> Admission:
+    """Paged scheduling with overcommit, on the device, in half-group
+    units (W/2 contiguous pages): free dead slots' halves -> grow live
+    slots that this sub-burst's R rounds take past their first half ->
+    preempt the YOUNGEST live slots while growth does not fit (their rids
+    go on the retry stack) -> admit retry-stack rids (LIFO), then
+    queue-head rids, one half each, two when the prompt plus the lookahead
+    does not fit a half. The JAX engine's _overcommit_admission, with
+    stable sorts where it sorts and no host read."""
+    dev = st.lengths.device
+    B, W = st.page_table.shape
+    Hp = W // 2
+    P = engine_cfg.page_size
+    NH = engine_cfg.n_pages // Hp
+    R_total, S_pre = prompts_all.shape
+    units = torch.arange(Hp, dtype=I32, device=dev)[None, :]
+
+    page_table, lengths = st.page_table, st.lengths
+    grown = st.grown
+    retry_top = st.retry_top
+
+    def push_units(stack, top, mask1, units1, mask2, units2):
+        ord1 = torch.cumsum(mask1, 0, dtype=I32) - 1
+        index_set_drop_(stack, torch.where(mask1, top + ord1, NH), units1)
+        top = top + mask1.sum(dtype=I32)
+        ord2 = torch.cumsum(mask2, 0, dtype=I32) - 1
+        index_set_drop_(stack, torch.where(mask2, top + ord2, NH), units2)
+        return top + mask2.sum(dtype=I32)
+
+    h1 = page_table[:, 0] // Hp
+    h2 = page_table[:, Hp] // Hp
+
+    # ---- free dead-but-allocated slots' halves ----
+    to_free = (lengths == 0) & st.allocated
+    page_stack = st.page_stack.clone()
+    free_top = push_units(page_stack, st.free_top, to_free, h1,
+                          to_free & grown, h2)
+    allocated = st.allocated & ~to_free
+    grown = grown & ~to_free
+    live = lengths > 0
+
+    # ---- growth demand: this sub-burst writes positions up to len + R - 2
+    need2 = live & ~grown & (lengths + R - 1 > Hp * P)
+    n_need = need2.sum(dtype=I32)
+
+    # ---- preempt the youngest live slots until growth fits ----
+    key = torch.where(live, st.adm_seq, -1)
+    order = torch.sort(-key, stable=True).indices            # youngest first
+    freed_cum = torch.cumsum(
+        torch.where(live, 1 + grown.to(I32), 0)[order], 0, dtype=I32)
+    need_cum = torch.cumsum(need2.to(I32)[order], 0, dtype=I32)
+    ok = torch.cat([(free_top >= n_need).reshape(1),
+                    free_top + freed_cum >= n_need - need_cum])
+    k_star = (~ok).sum(dtype=I32)       # monotone: the first-True index
+    rank = torch.zeros(B, dtype=I32, device=dev).scatter_(
+        0, order, torch.arange(B, dtype=I32, device=dev))
+    preempt = live & (rank < k_star)
+    p_ord = torch.cumsum(preempt, 0, dtype=I32) - 1
+    retry_stack = index_set_drop_(
+        st.retry_stack.clone(),
+        torch.where(preempt, retry_top + p_ord, R_total), st.rid)
+    n_preempt = preempt.sum(dtype=I32)
+    retry_top = retry_top + n_preempt
+    free_top = push_units(page_stack, free_top, preempt, h1,
+                          preempt & grown, h2)
+    lengths = torch.where(preempt, 0, lengths)
+    allocated = allocated & ~preempt
+    grown = grown & ~preempt
+    need2 = need2 & ~preempt
+
+    # ---- grow: pop one half per remaining candidate (fits by k_star) ----
+    g_ord = torch.cumsum(need2, 0, dtype=I32) - 1
+    g_pop = page_stack[(free_top - 1 - g_ord).clamp(0, NH - 1).long()]
+    second = torch.where(need2, g_pop, h2)[:, None] * Hp + units
+    page_table = torch.where(need2[:, None],
+                             torch.cat([page_table[:, :Hp], second], dim=1),
+                             page_table)
+    free_top = free_top - need2.sum(dtype=I32)
+    grown = grown | need2
+
+    # ---- admission: the retry stack first (LIFO), then the queue head;
+    # one half each, two if the prompt + lookahead cannot fit a half ----
+    dead = ~allocated
+    n_retry = retry_top
+    remaining = (n_real - st.queue_head).clamp_min(0)
+    j = torch.arange(max_new, dtype=I32, device=dev)
+    from_retry = j < n_retry
+    r_idx = (retry_top - 1 - j).clamp(0, R_total - 1).long()
+    rid_vec = torch.where(from_retry, retry_stack[r_idx],
+                          st.queue_head + j - n_retry)
+    # rids are global; buffer rows are rid % R_total
+    row_vec = (rid_vec.clamp_min(0) % R_total).long()
+    plens_cand = plens_all[row_vec]
+    hneed = 1 + (plens_cand + R - 1 > Hp * P).to(I32)
+    hcum = torch.cumsum(hneed, 0, dtype=I32)
+    m_basic = torch.minimum(dead.sum(dtype=I32).clamp_max(max_new),
+                            n_retry + remaining)
+    admit = (j < m_basic) & (hcum <= free_top)            # prefix-closed
+    m = admit.sum(dtype=I32)
+    slot_order = torch.sort((~dead).to(torch.int8), stable=True).indices
+    slot_ids = torch.where(admit, slot_order[:max_new].to(I32), B)
+    plens = torch.where(admit, plens_cand, 0)
+    prompts = prompts_all[row_vec]
+    off1 = hcum - hneed
+    u1 = page_stack[(free_top - 1 - off1).clamp(0, NH - 1).long()]
+    u2 = page_stack[(free_top - hcum).clamp(0, NH - 1).long()]
+    two = hneed == 2
+    first = u1[:, None] * Hp + units
+    # an ungrown slot's second half REPEATS its first: never read (lengths
+    # stay below Hp*P until it grows) and never written
+    sec = torch.where(two[:, None], u2[:, None] * Hp + units, first)
+    granted = torch.cat([first, sec], dim=1)              # [max_new, W]
+    page_table = index_set_drop_(page_table.clone(), slot_ids, granted)
+    free_top = free_top - torch.where(admit, hneed, 0).sum(dtype=I32)
+    n_from_retry = torch.minimum(m, n_retry)
+    retry_top = retry_top - n_from_retry
+    queue_head = st.queue_head + (m - n_from_retry)
+    lengths = index_set_drop_(lengths.clone(), slot_ids, plens)
+    last_prompt_tok = prompts[j.long(), (plens - 1).clamp(0, S_pre - 1).long()]
+    last_tokens = index_set_drop_(st.last_tokens.clone(), slot_ids,
+                                  last_prompt_tok)
+    rid = index_set_drop_(st.rid.clone(), slot_ids, rid_vec)
+    allocated = allocated | index_set_drop_(
+        torch.zeros_like(allocated), slot_ids, torch.ones_like(admit))
+    grown = index_set_drop_(grown.clone(), slot_ids, two)
+    adm_seq = index_set_drop_(st.adm_seq.clone(), slot_ids, st.seq_ctr + j)
+    oc = dict(grown=grown, adm_seq=adm_seq, seq_ctr=st.seq_ctr + m,
+              retry_stack=retry_stack, retry_top=retry_top,
+              preempted=st.preempted + n_preempt)
+    return Admission(page_table, lengths, last_tokens, rid, allocated,
+                     queue_head, free_top, page_stack, granted, plens,
+                     prompts, m, slot_ids, oc)
 
 
 def _new_rings(model_cfg: ModelConfig, engine_cfg: EngineConfig, dev,
@@ -166,58 +405,20 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     and ``do_flush`` lands the ring in the pages at its end. Returns (state,
     status, ring_ctx)."""
     dev = st.lengths.device
-    B = engine_cfg.n_slots
-    W = st.page_table.shape[1]
     NP = engine_cfg.n_pages
     P = engine_cfg.page_size
     S = model_cfg.n_seq
-    NG = NP // W
     R_total, S_pre = prompts_all.shape
-    j = torch.arange(max_new, dtype=I32, device=dev)
 
-    # ---- 1. free the page groups of dead-but-allocated slots (group id =
-    # first page // W) ----
-    to_free = (st.lengths == 0) & st.allocated
-    free_ord = torch.cumsum(to_free, 0, dtype=I32) - 1
-    push_pos = torch.where(to_free, st.free_top + free_ord, NG)
-    page_stack = index_set_drop_(st.page_stack.clone(), push_pos,
-                                 st.page_table[:, 0] // W)
-    free_top = st.free_top + to_free.sum(dtype=I32)
-    allocated = st.allocated & ~to_free
-
-    # ---- 2. admission: pop the queue head into dead slots, one group each
-    dead = ~allocated
-    m = torch.minimum(dead.sum(dtype=I32).clamp_max(max_new),
-                      torch.minimum(n_real - st.queue_head, free_top))
-    # ascending dead slot ids first (jnp.nonzero(size=B) without a sync)
-    slot_order = torch.sort((~dead).to(torch.int8), stable=True).indices
-    admit = j < m
-    slot_ids = torch.where(admit, slot_order[:max_new].to(I32), B)
-    # rids are global request indices; buffer rows are rid % R_total
-    req_ix = st.queue_head + j
-    req_row = (req_ix % R_total).long()
-    plens = torch.where(admit, plens_all[req_row], 0)
-    if engine_cfg.sort_admits:
-        # the admitted wave in prompt-length order (stable): the admitted
-        # set and the queue advance are unchanged; slots and groups are
-        # assigned in that order (greedy outputs do not depend on them)
-        order = torch.sort(torch.where(admit, plens, 1 << 30),
-                           stable=True).indices
-        req_ix, req_row, plens = req_ix[order], req_row[order], plens[order]
-    prompts = prompts_all[req_row]                      # [max_new, S_pre]
-    # the j-th admitted request pops page_stack[free_top - 1 - j]
-    gids = page_stack[(free_top - 1 - j).clamp(0, NG - 1).long()]
-    granted = gids[:, None] * W + torch.arange(W, dtype=I32, device=dev)
-    page_table = index_set_drop_(st.page_table.clone(), slot_ids, granted)
-    free_top = free_top - m
-    queue_head = st.queue_head + m
-    lengths = index_set_drop_(st.lengths.clone(), slot_ids, plens)
-    last_prompt_tok = prompts[j.long(), (plens - 1).clamp(0, S_pre - 1).long()]
-    last_tokens = index_set_drop_(st.last_tokens.clone(), slot_ids,
-                                  last_prompt_tok)
-    rid = index_set_drop_(st.rid.clone(), slot_ids, req_ix)
-    allocated = allocated | index_set_drop_(
-        torch.zeros_like(allocated), slot_ids, torch.ones_like(admit))
+    # ---- 1-2. free, (overcommit: grow, preempt,) admit ----
+    if engine_cfg.overcommit:
+        adm = _overcommit_admission(engine_cfg, max_new, R, st, prompts_all,
+                                    plens_all, n_real)
+    else:
+        adm = _full_grant_admission(engine_cfg, max_new, st, prompts_all,
+                                    plens_all, n_real)
+    (page_table, lengths, last_tokens, rid, allocated, queue_head, free_top,
+     page_stack, granted, plens, prompts, m, slot_ids, oc) = adm
 
     # ---- 3. prefill the admitted prompts over the smallest bucket of rows
     # that holds them (the first m rows of the max_new block) ----
@@ -294,7 +495,7 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
 
     new_st = AutoState(kv, page_table, lengths, last_tokens, rid, allocated,
                        queue_head, free_top, page_stack, st.out_tokens,
-                       st.final_lens)
+                       st.final_lens, **oc)
     ring_ctx_out = (None if ring_ctx is None
                     else (rings, ring_scs, ring_start, ring_r0))
     return new_st, _status_of(new_st), ring_ctx_out
@@ -314,7 +515,10 @@ def _autonomous_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     for the whole burst rides across the sub-bursts and is flushed once at
     burst end; otherwise each sub-burst flushes its own ring."""
     stats.bursts += 1
-    go = bool(((st.lengths > 0).any() | (st.queue_head < n_real)).item())
+    pending = st.queue_head < n_real
+    if engine_cfg.overcommit:
+        pending = pending | (st.retry_top > 0)
+    go = bool(((st.lengths > 0).any() | pending).item())
     stats.host_syncs += 1
     if not go:
         stats.skipped += 1
@@ -353,16 +557,20 @@ def _compact_slice(st: AutoState, b_new: int) -> AutoState:
         rid=st.rid[sel],
         allocated=st.allocated[sel],
         page_table=st.page_table[sel],
+        grown=None if st.grown is None else st.grown[sel],
+        adm_seq=None if st.adm_seq is None else st.adm_seq[sel],
     )
 
 
 class AutonomousEngine:
     """Continuous-batching engine with the scheduler on the device.
 
-    ``attention_impl``: ``"grouped"`` (the fused-write CUDA kernel; its
-    plain version on the CPU) or ``"torch"`` (scatter + the gather oracle).
-    ``device``: ``cuda`` unless the caller names another; raises without a
-    GPU. ``params`` are tensors on that device (models.params_from_numpy).
+    ``attention_impl``: ``"grouped"`` (the CUDA kernels: the fused-write
+    kernel, or with ``decode_ring`` the ring partial of the configured
+    formulation; their plain versions on the CPU) or ``"torch"`` (scatter +
+    the gather oracle, no ring). ``device``: ``cuda`` unless the caller
+    names another; raises without a GPU. ``params`` are tensors on that
+    device (models.params_from_numpy).
     """
 
     def __init__(
@@ -475,8 +683,16 @@ class AutonomousEngine:
                 prev_status = None
         with phase("drain_fetch"):
             packed = torch.cat([st.out_tokens, st.final_lens[:, None]], dim=1)
+            if st.preempted is not None:
+                # the preemption count rides in one more row of the pull
+                extra = torch.cat([st.preempted.view(1, 1),
+                                   torch.zeros_like(packed[:1, 1:])], dim=1)
+                packed = torch.cat([packed, extra])
             packed = packed.cpu().numpy()
             self.stats.host_syncs += 1
+            if st.preempted is not None:
+                self.stats.preemptions += int(packed[-1, 0])
+                packed = packed[:-1]
             out_tokens, final_lens = packed[:, :-1], packed[:, -1]
         total = 0
         for i, req in enumerate(requests):

@@ -141,16 +141,10 @@ def test_entry_points_raise_without_a_gpu(params):
             engine(params[1], TMODEL, cfg)
 
 
-@pytest.mark.parametrize("change", [
-    dict(overcommit=True), dict(decode_ring=True, attn_dense=True),
-    dict(decode_ring=True, attn_flat=True),
-])
-def test_unported_paths_raise(params, change):
+def test_unported_paths_raise(params):
+    """Sampling is the one AutonomousEngine option not ported yet."""
     cfg = T.EngineConfig(n_slots=8, page_size=16, n_pages=32,
                          decode_ring=False)
-    with pytest.raises(NotImplementedError):
-        T.AutonomousEngine(params[1], TMODEL, dataclasses.replace(cfg, **change),
-                           device="cpu")
     with pytest.raises(NotImplementedError):
         T.AutonomousEngine(params[1], TMODEL, cfg, temperature=0.7,
                            device="cpu")

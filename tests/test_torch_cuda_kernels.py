@@ -20,6 +20,10 @@ from min_llm_inference_tpu_torch.ops.paged_attention_dgrid import (
     dgrid_paged_partial,
     dgrid_paged_partial_plain,
 )
+from min_llm_inference_tpu_torch.ops.paged_attention_flat import (
+    paged_decode_attention_flat,
+    paged_decode_attention_flat_plain,
+)
 from min_llm_inference_tpu_torch.ops.paged_attention_grouped import (
     paged_decode_attention_grouped,
     paged_decode_attention_grouped_plain,
@@ -33,6 +37,7 @@ from min_llm_inference_tpu_torch.ops.ring_flush import (
     ring_flush,
     ring_flush_plain,
 )
+from min_llm_inference_tpu_torch.tools import int4_probe
 
 
 @pytest.fixture
@@ -368,3 +373,79 @@ def test_one_slot_kernel_rejects_unsupported_pools(cuda):
         paged_decode_attention(x["q"], x["pool"], *args[:2])
     with pytest.raises(ValueError):     # bf16 pools are not the kernel's
         paged_decode_attention(x["q"], x["pool"].to(torch.bfloat16), *args[:2])
+
+
+def half_group_table(rng, rs, W, P, NP):
+    """Overcommit rows: two independent half-groups of W/2 pages; a row
+    whose context fits its first half ("ungrown") repeats that half."""
+    Hp = W // 2
+    units = rng.permutation(NP // Hp)
+    table = np.zeros((rs.shape[0], W), np.int32)
+    for b in range(rs.shape[0]):
+        first = units[2 * b] * Hp + np.arange(Hp)
+        grown = rs[b] + 4 > Hp * P
+        second = units[2 * b + 1] * Hp + np.arange(Hp) if grown else first
+        table[b] = np.concatenate([first, second])
+    return table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["float32", "int8", "int4"])
+@pytest.mark.parametrize("H,D,in_dtype,table", [
+    (1, 64, torch.bfloat16, "groups"), (2, 64, torch.float32, "half"),
+    (12, 96, torch.bfloat16, "groups"), (12, 96, torch.float32, "half"),
+])
+def test_flat_matches_plain(cuda, kv, H, D, in_dtype, table):
+    """o, m, l within 1e-4 * max(1, |x|); dead rows (whatever their stale
+    ring_start, some > 0) and ring_start == 0 rows empty; the pool
+    unchanged; slot counts that do not fill the last block of 8."""
+    rng = np.random.default_rng(25 + H + D)
+    B, W, P = 61, 4, 16
+    x = partial_inputs(rng, cuda, kv, B, W, P, D, in_dtype)
+    x["rs"][6] = 5                    # slot 6 is dead: a stale ring_start
+    if table == "half":
+        rs = x["rs"].cpu().numpy()
+        ln = np.minimum(x["lengths"].cpu().numpy(), np.where(
+            rs + 4 > W * P // 2, W * P, rs + 3))
+        x["lengths"] = torch.from_numpy(ln.astype(np.int32)).to(cuda)
+        NP = x["pool"].shape[0]
+        x["table"] = torch.from_numpy(
+            half_group_table(rng, rs, W, P, NP)).to(cuda)
+    args = (x["q"], x["pool"], x["lengths"], x["table"], x["ks"], x["vs"],
+            x["rs"])
+    kw = dict(n_heads=H, packed_int4=kv == "int4")
+    pool0 = x["pool"].clone()
+    before = paged_decode_attention_flat.launches
+    got = paged_decode_attention_flat(*args, **kw)
+    want = paged_decode_attention_flat_plain(*args, **kw)
+    assert paged_decode_attention_flat.launches == before + 1
+    assert torch.equal(x["pool"], pool0)          # read-only
+    assert_partials_close(got, want, x["lengths"], x["rs"])
+
+
+@pytest.mark.cuda
+def test_flat_rejects_unsupported_inputs(cuda):
+    x = partial_inputs(np.random.default_rng(5), cuda, "int8", 8, 2, 8, 32,
+                       torch.float32)
+    args = (x["lengths"], x["table"], x["ks"], x["vs"], x["rs"])
+    with pytest.raises(ValueError):     # bf16 pools are not the kernel's
+        paged_decode_attention_flat(x["q"], x["pool"].to(torch.bfloat16),
+                                    x["lengths"], x["table"],
+                                    ring_start=x["rs"])
+    with pytest.raises(ValueError):     # int8 without scales
+        paged_decode_attention_flat(x["q"], x["pool"], *args[:2],
+                                    ring_start=x["rs"])
+    with pytest.raises(ValueError):     # the ring partial only
+        paged_decode_attention_flat(x["q"], x["pool"], *args[:4])
+
+
+@pytest.mark.cuda
+def test_int4_probe_matches_plain(cuda):
+    """The page's self-dot equals unpack + torch.matmul bit for bit; the
+    entry point reports SUPPORTED."""
+    x = int4_probe.make_pages(7).to(cuda)
+    before = int4_probe.int4_page_self_dot.launches
+    got = int4_probe.int4_page_self_dot(x)
+    assert int4_probe.int4_page_self_dot.launches == before + 1
+    assert torch.equal(got, int4_probe.int4_page_self_dot_plain(x))
+    assert int4_probe.probe(cuda, strict=True)
