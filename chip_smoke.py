@@ -25,7 +25,15 @@ Phases, one line each; any failure raises and exits non-zero:
      and 8192 (dgrid) with a slot at ring_start = W*P, the drained 512
      slots, 61 slots, every slot dead, fragmented and half-group tables
      (flat); the int4 probe's kernel through its entry point (``python -m
-     min_llm_inference_tpu_torch.tools.int4_probe`` runs it alone);
+     min_llm_inference_tpu_torch.tools.int4_probe`` runs it alone); the
+     one-slot and the grouped kernel (modes a, b, c) at their edges:
+     12-head contexts of W*P = 4096 (int8; int4 for the grouped modes),
+     rows of 8192 features in one head, the fused write with the new row
+     at every position class of a tile and a page, five times over one
+     pool; and copies against in-block arithmetic (``[split]``): the
+     device time of the one-slot kernel and of the fused write at one head
+     of 2048 features beside builds of the same source that only copy
+     (RING_PARTIAL_SPLIT=1) or only compute (=2), in turns;
   4. engine parity on the card at small configs: the kernel path
      (attention_impl="grouped") against the gather oracle ("torch"),
      token for token: no ring for int4, int8 and float32 KV (reference
@@ -83,9 +91,11 @@ Phases, one line each; any failure raises and exits non-zero:
      timed run that must preempt, and a replay of its middle fused-write
      call.
 Then a [kernel_device] line per timed check (the kernel's device time alone,
-from torch.profiler, taken after every path so that the profiler's cost
-stays out of the walls), a JSON line of per-kernel numbers (seven
-kernels) and, last, the ok line.
+by CUDA events behind a device sleep, device_ev_ms, and from
+torch.profiler, device_ms; taken after every path so that the profiler's
+cost stays out of the walls; the host path's replayed one-slot call also
+gets a device_ev_ms right after its path), a JSON line of per-kernel
+numbers (seven kernels) and, last, the ok line.
 
 Float32 matmuls run in full float32: TF32 is turned off below.
 """
@@ -121,6 +131,13 @@ GPT2S = dict(n_vocab=1024, emb_dim=768, n_seq=128, n_layers=12, n_heads=12,
 # the overcommit path's pool, as ``python bench.py --overcommit --pages
 # 3072`` sizes it: 1536 half-units of 2 pages for 1024 slots
 OVERCOMMIT_PAGES = 3072
+# the attention template's timing variants (csrc/ring_partial.cuh): its
+# copies alone and its arithmetic alone, built from the sources below
+SPLIT_VARIANTS = {"kernel": (), "copies": ("RING_PARTIAL_SPLIT=1",),
+                  "arithmetic": ("RING_PARTIAL_SPLIT=2",)}
+SPLIT_SOURCES = ("paged_attention.cu", "paged_attention_grouped.cu")
+# device cycles a device_ev_ms call waits before each timed call (~0.5 ms)
+SLEEP_CYCLES = 1_000_000
 
 
 T0 = time.perf_counter()
@@ -143,16 +160,38 @@ def device_ms(fn, iters: int) -> float:
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0)
-             for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return us / 1e3 / iters
+    for _ in range(3):           # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", 0)
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    raise AssertionError("the profiler recorded no device time")
+
+
+def device_ev_ms(fn, iters: int = 20) -> float:
+    """Mean device time of fn() in ms by CUDA events around each call, each
+    call queued behind a device sleep (SLEEP_CYCLES) that outlasts the
+    host's dispatch of it: the events time the kernel alone, with no
+    profiler in the process."""
+    for _ in range(2):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -173,11 +212,13 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 # ---------------------------------------------------------------- phase 3
 
 
-def grouped_case(rng, dev, B, W, P, D, H, kv, in_dtype, NP=None):
+def grouped_case(rng, dev, B, W, P, D, H, kv, in_dtype, NP=None,
+                 lengths=None):
     """Random fused-write inputs in the engine's layout: contiguous page
     groups, q/k_new/v_new as column slices of one fused [B, 3D] projection,
     scales already updated for fresh pages, lengths covering dead slots, 1,
-    P-1, P, P+1, fresh-page inserts and the last position."""
+    P-1, P, P+1, fresh-page inserts and the last position (or the given
+    ``lengths``)."""
     from min_llm_inference_tpu_torch.models.paged import decode_fresh_pid
     from min_llm_inference_tpu_torch.ops.quant import (
         kv_qmax,
@@ -190,11 +231,13 @@ def grouped_case(rng, dev, B, W, P, D, H, kv, in_dtype, NP=None):
     Dk = D // 2 if packed else D
     gids = rng.permutation(NG)[:B]
     table = (gids[:, None] * W + np.arange(W)[None, :]).astype(np.int32)
-    lengths = rng.integers(1, W * P + 1, B).astype(np.int32)
-    lengths[rng.random(B) < 0.1] = 0
-    special = [s for s in (0, 1, P - 1, P, P + 1, 2 * P + 1, W * P, 0,
-                           (W - 1) * P + 1) if s <= W * P][:B]
-    lengths[: len(special)] = special
+    if lengths is None:
+        lengths = rng.integers(1, W * P + 1, B).astype(np.int32)
+        lengths[rng.random(B) < 0.1] = 0
+        special = [s for s in (0, 1, P - 1, P, P + 1, 2 * P + 1, W * P, 0,
+                               (W - 1) * P + 1) if s <= W * P][:B]
+        lengths[: len(special)] = special
+    lengths = np.asarray(lengths, np.int32)
     if kv == "int4":
         hi = rng.integers(-7, 8, (NP, 2, P, Dk))
         lo = rng.integers(-7, 8, (NP, 2, P, Dk))
@@ -248,13 +291,16 @@ def timed_pair(name, res, kernel_fn, plain_fn, bound,
 
 
 def device_times(iters: int = 20) -> None:
-    """device_ms of every timed check, one [kernel_device] line each. Taken
-    last: once torch.profiler has traced the card, every later kernel
-    launch in the process costs more host time, which would slow the
-    paths' walls."""
+    """device_ev_ms, then device_ms, of every timed check, one
+    [kernel_device] line each. Taken last: once torch.profiler has traced
+    the card, every later kernel launch in the process costs more host
+    time, which would slow the paths' walls."""
+    for _, res, fn in DEVICE_PENDING:
+        res["device_ev_ms"] = device_ev_ms(fn, iters)
     for name, res, fn in DEVICE_PENDING:
         res["device_ms"] = device_ms(fn, iters)
-        log("kernel_device", case=name, device_ms=f"{res['device_ms']:.6g}")
+        log("kernel_device", case=name, device_ms=f"{res['device_ms']:.6g}",
+            device_ev_ms=f"{res['device_ev_ms']:.6g}")
     DEVICE_PENDING.clear()
 
 
@@ -522,6 +568,86 @@ def partial_edges(rng, dev, errs) -> None:
                           2 if label.startswith("B61") else H, timed=False)
         errs["dgrid_paged_partial" if kind == "dgrid"
              else "paged_decode_attention_flat"].append(r["max_abs_err"])
+
+
+def attention_edges(rng, dev, errs) -> None:
+    """The one-slot and the grouped kernel (modes a and b by check_grouped,
+    c by check_partial) at their edges, each held against its plain
+    version: 12-head contexts of W*P = 4096 at emb 768 (int8; int4 for the
+    grouped modes), which the kernels that kept a whole context's scores in
+    shared memory refused, with a slot at the full width; rows of 8192
+    features in one head at W*P = 128 (two feature slices in a cluster);
+    the fused write at one head of 2048 features with the new row at every
+    position class of a tile and a page, the last tile among the ring's
+    first stages and past them, five times over one pool."""
+    P = 32
+    one = errs["paged_decode_attention"]
+    grouped = errs["paged_decode_attention_grouped"]
+    for label, B, W, D, H in (("long-W128", 24, 128, 768, 12),
+                              ("wide-D8192", 32, 4, 8192, 1)):
+        t = one_slot_case(rng, dev, B, W, P, D, "int8", torch.bfloat16,
+                          B * W + 3)
+        one.append(check_one_slot(f"one-slot-{label}-int8", t, H,
+                                  timed=False)["max_abs_err"])
+        for kv in ("int8", "int4"):
+            t = grouped_case(rng, dev, B, W, P, D, H, kv, torch.bfloat16,
+                             NP=(B + 3) * W)
+            grouped.append(check_grouped(f"grouped-{label}-{kv}", t,
+                                         timed=False)["max_abs_err"])
+            t = partial_case(rng, dev, B, W, P, D, kv, torch.bfloat16,
+                             (B + 2) * W)
+            t["rs"][6] = W * P
+            t["lengths"][6] = W * P
+            grouped.append(check_partial(f"grouped-c-{label}-{kv}",
+                                         "grouped", t, H,
+                                         timed=False)["max_abs_err"])
+    lengths = [0, 1, 4, 8, 9, 12, 16, 17, 20, 24, 25, 31, 32, 33, 36, 40, 47,
+               48, 49, 64, 65, 72, 96, 97, 100, 112, 127, 128, 0, 3]
+    for kv in ("int8", "int4"):
+        t = grouped_case(rng, dev, len(lengths), 4, P, MAIN["emb_dim"], 1,
+                         kv, torch.bfloat16, NP=(len(lengths) + 3) * 4,
+                         lengths=lengths)
+        for rep in range(5):
+            grouped.append(check_grouped(f"fused-positions-{kv}-{rep}", t,
+                                         timed=False)["max_abs_err"])
+
+
+def split_times(rng, dev, rounds: int = 3) -> dict:
+    """Copies against in-block arithmetic at one head of 2048 features:
+    device_ev_ms of the kernel and of its timing variants (SPLIT_VARIANTS:
+    the same source built to only copy, or only compute), in turns,
+    ``rounds`` times, on random inputs at the main paths' shapes: the
+    one-slot kernel at the host path's (int8) and the fused write at the
+    reference path's (packed int4) and with int8 pages (as overcommit's).
+    One [split] line per shape; returns {shape: {variant: [ms, ...]}}."""
+    from min_llm_inference_tpu_torch.ops import paged_attention as pa
+    from min_llm_inference_tpu_torch.ops import paged_attention_grouped as gr
+
+    P, B, D = MAIN["page_size"], MAIN["n_slots"], MAIN["emb_dim"]
+    W = -(-MAIN["n_seq"] // P)
+    t = one_slot_case(rng, dev, B, W, P, D, "int8", torch.bfloat16,
+                      MAIN["n_pages"])
+    calls = {"one-slot-int8": lambda defs, t=t: pa._launch(
+        t["q"], t["pool"], t["lengths"], t["table"], t["ks"], t["vs"], 1,
+        defs)}
+    for kv in ("int4", "int8"):
+        t = grouped_case(rng, dev, B, W, P, D, 1, kv, torch.bfloat16,
+                         NP=MAIN["n_pages"])
+        calls[f"fused-{kv}"] = lambda defs, t=t, packed=kv == "int4": (
+            gr._launch(t["q"], t["pool"], t["lengths"], t["table"], t["ks"],
+                       t["vs"], t["k_new"], t["v_new"], None, 1, packed,
+                       defs))
+    out = {shape: {v: [] for v in SPLIT_VARIANTS} for shape in calls}
+    for _ in range(rounds):
+        for shape, call in calls.items():
+            for v, defs in SPLIT_VARIANTS.items():
+                out[shape][v].append(
+                    device_ev_ms(lambda call=call, defs=defs: call(defs)))
+    for shape, times in out.items():
+        log("split", shape=shape, **{
+            f"{v}_ms": "/".join(f"{x:.6g}" for x in ms)
+            for v, ms in times.items()})
+    return out
 
 
 def flush_case(rng, dev, B, W, P, Dk, NP, n_rounds, dtype=torch.int8):
@@ -1401,8 +1527,13 @@ def host_path(T, dev, gpu_line, profile_dir=None):
         f"host-call-{n_launch // 2}",
         dict(zip(("q", "pool", "lengths", "table", "ks", "vs"), args)),
         kw["n_heads"], timed=True)}
-    res["paged_decode_attention"]["run_bound_ms_per_launch"] = (
-        run_bound / n_launch)
+    one = res["paged_decode_attention"]
+    one["run_bound_ms_per_launch"] = run_bound / n_launch
+    # its device time here, in the middle of the script, beside the one
+    # device_times() takes at the end on the same inputs
+    one["device_ev_ms_mid"] = device_ev_ms(DEVICE_PENDING[-1][2])
+    log("kernel_device", case=f"host-call-{n_launch // 2}", at="mid",
+        device_ev_ms=f"{one['device_ev_ms_mid']:.6g}")
     args, _ = snaps["prefill_quant_scatter"]
     res["prefill_quant_scatter"] = check_prefill(
         f"host-prefill-call-{launches['prefill_quant_scatter'] // 2}",
@@ -1615,6 +1746,14 @@ SOURCES = {
 }
 
 
+def split_means(split, shape) -> dict:
+    """The mean device_ev_ms of each timing variant of one [split] shape,
+    as JSON keys."""
+    key = shape.replace("-", "_")
+    return {f"split_{key}_{v}_ms": float(np.mean(ms))
+            for v, ms in split[shape].items()}
+
+
 def kernel_entry(name, launches, errs, res, **extra):
     src, tpu = SOURCES[name]
     return {"name": name, "route": "cuda",
@@ -1652,11 +1791,16 @@ def main() -> int:
         cuda=torch.version.cuda, tf32="off")
 
     t0 = time.perf_counter()
-    took = _build.build(_build.SOURCES + _build.HOST_SOURCES)
-    for src in _build.SOURCES + _build.HOST_SOURCES:
-        with open(_build.library_path(src) + ".log") as f:
+    items = _build.SOURCES + _build.HOST_SOURCES + tuple(
+        (src, defs) for src in SPLIT_SOURCES
+        for defs in SPLIT_VARIANTS.values() if defs)
+    took = _build.build(items)
+    for item in items:
+        src, defs = _build.build_item(item)
+        with open(_build.library_path(src, defs) + ".log") as f:
             ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
-        log("build", source=src, nvcc_s=f"{took.get(src, 0.0):.2f}",
+        log("build", source=src, defines=",".join(defs) or "-",
+            nvcc_s=f"{took.get(item, 0.0):.2f}",
             ptxas=f"'{' | '.join(ptxas[:4])}'")
     log("build", total_s=f"{time.perf_counter() - t0:.2f}")
 
@@ -1767,6 +1911,8 @@ def main() -> int:
                     H, timed=False)
                 errs["paged_decode_attention_flat"].append(r["max_abs_err"])
     partial_edges(rng, dev, errs)
+    attention_edges(rng, dev, errs)
+    split = split_times(rng, dev)
     probe_launches, probe_res = check_probe(dev)
     errs["int4_page_self_dot"].append(probe_res["max_abs_err"])
 
@@ -1808,7 +1954,10 @@ def main() -> int:
         overcommit_launches=o_launches["paged_decode_attention_grouped"],
         overcommit_preemptions=preemptions, overcommit_ms=o_res["ms"],
         overcommit_plain_ms=o_res["plain_ms"],
-        overcommit_bound_ms=o_res["bound_ms"])]
+        overcommit_bound_ms=o_res["bound_ms"],
+        overcommit_device_ms=o_res["device_ms"],
+        **split_means(split, "fused-int4"),
+        **split_means(split, "fused-int8"))]
     rand = {"dgrid_paged_partial": dgrid_rand, "ring_flush": flush_rand,
             "prefill_quant_scatter": prefill_rand}
     for name in ("dgrid_paged_partial", "ring_flush", "prefill_quant_scatter"):
@@ -1841,7 +1990,10 @@ def main() -> int:
         run_bound_ms_per_launch=hr["run_bound_ms_per_launch"],
         random_ms=one_rand["ms"], random_plain_ms=one_rand["plain_ms"],
         random_bound_ms=one_rand["bound_ms"],
-        engine_parity_launches=one_slot_engine))
+        engine_parity_launches=one_slot_engine,
+        device_ev_ms_mid=hr["device_ev_ms_mid"],
+        device_ev_ms_end=hr["device_ev_ms"],
+        **split_means(split, "one-slot-int8")))
     fr = f_res["paged_decode_attention_flat"]
     entries.append(kernel_entry(
         "paged_decode_attention_flat", f_launches["paged_decode_attention_flat"],

@@ -44,12 +44,23 @@ int mli_flat_partial(const void* q, long long q_stride, const void* pool,
                      float* l_out, int B, int D, int NP, int P, int W, int H,
                      int pool_kind, int in_bf16, float sm_scale,
                      void* stream) {
-  const ring_partial::Args a{
-      q, q_stride, in_bf16, static_cast<const unsigned char*>(pool),
-      k_scales, v_scales, ring_start, lengths, table, out, m_out, l_out,
-      sm_scale};
-  return ring_partial::launch<ring_partial::TablePages, true>(
-      pool_kind, a, B, D, NP, P, W, H, static_cast<cudaStream_t>(stream));
+  ring_partial::Args a = {};
+  a.q = q;
+  a.q_stride = q_stride;
+  a.in_bf16 = in_bf16;
+  a.pool = static_cast<unsigned char*>(const_cast<void*>(pool));
+  a.k_scales = k_scales;
+  a.v_scales = v_scales;
+  a.ring_start = ring_start;
+  a.lengths = lengths;
+  a.table = table;
+  a.out = out;
+  a.m_out = m_out;
+  a.l_out = l_out;
+  a.sm_scale = sm_scale;
+  return ring_partial::launch<ring_partial::TablePages, ring_partial::kPartial,
+                              true>(pool_kind, a, B, D, NP, P, W, H,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 // Shared memory bytes a launch needs (-1: shapes the kernel does not take).

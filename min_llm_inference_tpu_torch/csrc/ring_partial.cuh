@@ -1,31 +1,44 @@
-// Ring partial of paged decode attention, streamed page by page through
-// shared memory with an online softmax, for Hopper (sm_90a). The device
-// code shared by paged_attention_dgrid.cu and paged_attention_flat.cu: the
-// two compute the same function and differ only in how a slot finds its
-// pages (a Pages policy: GroupPages or TablePages below).
+// Paged decode attention streamed page by page through shared memory with
+// an online softmax, for Hopper (sm_90a). The device code of the port's
+// four attention kernels: paged_attention.cu (one-slot, Full),
+// paged_attention_grouped.cu (modes a Full, b FusedWrite, c Partial),
+// paged_attention_dgrid.cu and paged_attention_flat.cu (Partial). They
+// compute one function in three modes and differ only in how a slot finds
+// its pages (a Pages policy: GroupPages or TablePages below).
 //
 // What it computes. The pool [NP, 2, P, Dk] (float32, int8, or packed int4
-// with Dk = D/2; int8/int4 with per-page f32 scales) is read-only and holds
-// positions < ring_start[b]. For each live slot b (lengths[b] > 0) and head
-// h, over positions t < ring_start[b] (at most W*P):
+// with Dk = D/2; int8/int4 with per-page f32 scales). For each slot b with
+// context length L > 0 and head h, over positions t < L:
 //   s_t = (q . K_t) / sqrt(dh) * k_scale(page of t)
 //   m = max_t s_t, l = sum_t exp(s_t - m),
 //   o = sum_t exp(s_t - m) * v_scale(page of t) * V_t / l     (float32)
-// A dead slot (lengths == 0, whatever its ring_start) and a live slot with
-// ring_start == 0 write o = 0, m = -inf, l = 0, and read nothing of the
-// pool (a dead slot's table row may hold live slots' pages).
+// The mode sets L and what is written:
+//   Partial    L = ring_start[b] (clamped to W*P) for a live slot: o, m, l;
+//   Full       L = min(lengths[b], W*P): o only;
+//   FusedWrite as Full, but first the slot's raw k_new / v_new rows are
+//              quantized against the ALREADY UPDATED page scales
+//              (s > 0 ? clip(rint(x * (1 / max(s, 1e-30))), +-qmax) : 0,
+//              IEEE division; int4 packed per head as 16*hi + lo) and
+//              written in place at table[b, (L-1)/P], row (L-1) % P, when
+//              that raw page id is in [0, NP); o covers the new row (when
+//              it is not, nothing is written and row L-1 is read from the
+//              clamped page, as the plain version reads it).
+// A dead slot (lengths == 0) and a live slot with L == 0 read nothing of
+// the pool, write nothing to it, and output o = 0 (Partial: m = -inf,
+// l = 0): a dead slot's table row may hold live slots' pages. Page ids are
+// clamped into the pool for reads.
 //
-// Bound on this card: bytes. A live slot reads its ring_start K rows and
-// ring_start V rows (Dk bytes each for int8/int4) and does ~4 flops per
-// byte on them, far below what the card's float32 units do per byte of HBM
-// bandwidth. What the design does about it:
+// Bound on this card: bytes. A live slot reads its L K rows and L V rows
+// (Dk bytes each for int8/int4) and does ~4 flops per byte on them, far
+// below what the card's float32 units do per byte of HBM bandwidth. What
+// the design does about it:
 //   * one block of 4 warps per slot (the block scheduler balances the
 //     slots' unequal contexts), three blocks an SM; the block streams its
 //     rows in tiles of TR rows of one page (K rows and V rows, each run one
 //     contiguous range of the pool, at most 32 KB a tile) through a ring of
-//     2-8 shared-memory stages (64 KB), each filled by two 1-D bulk copies
+//     2-8 shared-memory stages (64 KB), each filled by 1-D bulk copies
 //     (cp.async.bulk, the TMA without a tensor map) completing on an
-//     mbarrier. Only the rows below ring_start are copied;
+//     mbarrier. Only the context's rows are copied;
 //   * an online softmax per tile: running m, l and o per head, o rescaled
 //     when a tile raises m, the V page scale folded into the tile's weights.
 //     Shared memory does not grow with the context (W*P);
@@ -37,15 +50,34 @@
 //     reads do not conflict without padding;
 //   * int8 (and int4) bytes become floats without the conversion unit
 //     (a quarter of the float rate): the byte, offset by 128, is placed in
-//     the mantissa of 2^23 by one byte permute and the offset subtracted.
-// Whether the copies or the in-block arithmetic (the decode, the dots and
-// three barriers a tile) set the time is not settled yet (PERF.md).
-// Shapes the 16-byte path does not fit (a head's row segment not a multiple
-// of 16 bytes) take 4- or 1-byte reads; rows not a multiple of 16 bytes are
-// copied by plain loads into one stage.
+//     the mantissa of 2^23 by one byte permute and the offset subtracted;
+//   * the fused write never reads back its own global store: the bulk
+//     copies stop before the new row, and the block puts the row's bytes
+//     into the stage itself (generic stores, into bytes no copy writes)
+//     once that stage is handed to the last tile;
+//   * rows wider than one block's 4096 features (128 threads x 32
+//     accumulators) are cut into feature slices, one block each, launched
+//     as a thread block cluster (a separate instantiation, so unsliced
+//     rows pay nothing for it): each block stages and dots only its slice
+//     and the blocks sum their partial dots through distributed shared
+//     memory (one cluster barrier a tile) before the softmax, which every
+//     block then computes alike.
+// At one head of 2048 features the in-block arithmetic, not the copies,
+// sets the time (PERF.md: the kernel ~1.1x its arithmetic alone, ~1.4x its
+// copies alone). Shapes the 16-byte path does not fit (a head's row
+// segment not a multiple of 16 bytes) take 4- or 1-byte reads; rows not a
+// multiple of 16 bytes are copied by plain loads into one stage.
+//
+// RING_PARTIAL_SPLIT (a compile-time switch, 0 when not set) builds the
+// timing variants that chip_smoke.py compares with the kernel: 1 = the
+// copies alone (warp 0 waits for each tile and refills its stage, nothing
+// is computed), 2 = the arithmetic alone (the first stages' tiles are
+// copied once and every tile computes on them, no refills). Their outputs
+// are meaningless.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -53,17 +85,28 @@
 
 #include <mutex>
 
+#ifndef RING_PARTIAL_SPLIT
+#define RING_PARTIAL_SPLIT 0
+#endif
+
 namespace ring_partial {
+// Internal linkage: the kernel libraries that include this header are loaded
+// into one process, and a template's function-local statics (the attributes
+// set per device in run()) would otherwise be shared between them.
+namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kAcc = 32;                // P.V accumulators a thread holds
 constexpr int kMaxStages = 8;
+constexpr int kMaxSlices = 16;          // blocks of a cluster (non-portable > 8)
 constexpr int kTileBudget = 32 * 1024;  // bytes of one tile (K + V rows)
 constexpr int kRingBudget = 64 * 1024;  // bytes of the stage ring
 constexpr int kHeader = 256;            // mbarriers and per-stage page info
+constexpr int kMaxSmem = 232448;        // dynamic shared memory of a block
 
 enum PoolKind { kF32 = 0, kI8 = 1, kI4 = 2 };
+enum Mode { kPartial = 0, kFull = 1, kFusedWrite = 2 };
 
 // The shapes of one launch and its shared-memory layout, made on the host.
 struct Plan {
@@ -71,6 +114,11 @@ struct Plan {
   int row_b;      // bytes of one pool row (Dk elements)
   int head_b;     // bytes of one head's segment of a row
   int vb;         // bytes a lane reads at once: 16, 4 or 1
+  int nch;        // chunks (vb bytes) of one head
+  int slices;     // blocks a slot (a cluster when > 1)
+  int slice_c;    // chunks of a row one block owns (the last may own fewer)
+  int slice_b;    // slice_c * vb: a staged row's stride in a stage
+  int heads_b;    // most heads one block's chunks touch
   int tile_rows;  // rows of a page per tile (divides P)
   int tile_b;     // bytes of one stage
   int stages;     // stages of the ring (1 without bulk copies)
@@ -78,19 +126,23 @@ struct Plan {
   int ring_off, q_off, sc_off, hs_off, smem;
 };
 
-// The pointers and scalars of one launch.
+// The pointers and scalars of one launch (unused ones null).
 struct Args {
   const void* q;
   long long q_stride;
-  int q_bf16;
-  const unsigned char* pool;
+  int in_bf16;                 // q, k_new, v_new: bfloat16 (else float32)
+  unsigned char* pool;         // written by FusedWrite only
   const float* k_scales;
   const float* v_scales;
-  const int* ring_start;
+  const int* ring_start;       // Partial
   const int* lengths;
   const int* table;
+  const void* k_new;           // FusedWrite: raw new rows [B, D]
+  long long kn_stride;
+  const void* v_new;
+  long long vn_stride;
   float* out;
-  float* m_out;
+  float* m_out;                // Partial
   float* l_out;
   float sm_scale;
 };
@@ -109,7 +161,7 @@ inline int align_up(long long n, int a) {
 inline bool make_plan(Plan& p, int kind, int D, int H, int P, int W, int NP,
                       bool pool_16b) {
   if (kind < kF32 || kind > kI4 || D <= 0 || H <= 0 || D % H || P <= 0 ||
-      W <= 0 || NP <= 0 || D > kThreads * kAcc)
+      W <= 0 || NP <= 0)
     return false;
   if (kind == kI4 && (D / H) % 2) return false;
   const int esz = kind == kF32 ? 4 : 1;
@@ -117,54 +169,66 @@ inline bool make_plan(Plan& p, int kind, int D, int H, int P, int W, int NP,
   p.row_b = (kind == kI4 ? D / 2 : D) * esz;
   p.head_b = p.row_b / H;
   p.vb = p.head_b % 16 == 0 ? 16 : p.head_b % 4 == 0 ? 4 : 1;
+  p.nch = p.head_b / p.vb;
+  const int nc = p.row_b / p.vb;
+  // features of one chunk, and the chunks one block can own
+  const int fpc = (p.vb < 4 ? p.vb : (kind == kF32 ? p.vb / 4 : p.vb)) *
+                  (kind == kI4 ? 2 : 1);
+  const int max_c = kThreads * (kAcc / fpc);
+  p.slices = (nc + max_c - 1) / max_c;
+  if (p.slices > kMaxSlices) return false;
+  p.slice_c = (nc + p.slices - 1) / p.slices;
+  if ((p.slices - 1) * p.slice_c >= nc) return false;
+  p.slice_b = p.slice_c * p.vb;
+  p.heads_b = p.slices == 1
+                  ? H
+                  : (H < (p.slice_c + p.nch - 2) / p.nch + 1
+                         ? H
+                         : (p.slice_c + p.nch - 2) / p.nch + 1);
   int split = static_cast<int>(
-      (2LL * P * p.row_b + kTileBudget - 1) / kTileBudget);
+      (2LL * P * p.slice_b + kTileBudget - 1) / kTileBudget);
   if (split < 1) split = 1;
   while (P % split) ++split;
   p.tile_rows = P / split;
-  p.tile_b = align_up(2LL * p.tile_rows * p.row_b, 128);
-  p.bulk = pool_16b && p.row_b % 16 == 0;
+  p.tile_b = align_up(2LL * p.tile_rows * p.slice_b, 128);
+  p.bulk = pool_16b && p.row_b % 16 == 0 && p.slice_b % 16 == 0;
   p.stages = 1;
   if (p.bulk) {
     p.stages = kRingBudget / p.tile_b;
     p.stages = p.stages < 2 ? 2 : p.stages > kMaxStages ? kMaxStages : p.stages;
   }
   // after the last tile the ring holds the P.V row groups' partial sums
-  const int nc = p.row_b / p.vb;
-  const int fpc = (p.vb < 4 ? p.vb : (kind == kF32 ? p.vb / 4 : p.vb)) *
-                  (kind == kI4 ? 2 : 1);
-  const int groups = nc <= kThreads ? kThreads / nc : 1;
-  const long long red_b = 4LL * (groups - 1) * nc * fpc;
+  const int groups = p.slice_c <= kThreads ? kThreads / p.slice_c : 1;
+  const long long red_b = 4LL * (groups - 1) * p.slice_c * fpc;
   long long ring_b = 1LL * p.stages * p.tile_b;
   if (red_b > ring_b) ring_b = red_b;
-  int o = kHeader;
-  p.ring_off = o; o += align_up(ring_b, 128);
-  p.q_off = o;    o += align_up(4LL * D, 16);
-  p.sc_off = o;   o += align_up(4LL * p.tile_rows * H, 16);
-  p.hs_off = o;   o += align_up(12LL * H, 16);
-  p.smem = o;
+  // scores (sliced: also two buffers of partial dots) and head state
+  const int sc_n = (p.slices > 1 ? 3 : 1) * p.heads_b * p.tile_rows;
+  long long o = kHeader;
+  p.ring_off = static_cast<int>(o); o += align_up(ring_b, 128);
+  p.q_off = static_cast<int>(o);    o += align_up(4LL * p.slice_c * fpc, 16);
+  p.sc_off = static_cast<int>(o);   o += align_up(4LL * sc_n, 16);
+  p.hs_off = static_cast<int>(o);   o += align_up(12LL * p.heads_b, 16);
+  if (o > kMaxSmem) return false;
+  p.smem = static_cast<int>(o);
   return true;
 }
 
 // dgrid: a live slot's pages are one contiguous group gid*W + [0, W), gid
 // read from the row's first entry and clamped into the pool.
 struct GroupPages {
-  int base;
-  __device__ GroupPages(const int* table, int b, int W, int NP) {
+  static __device__ int raw(const int* table, int b, int W, int NP, int w) {
     const int gid = table[static_cast<long long>(b) * W] / W;
-    base = min(max(gid, 0), NP / W - 1) * W;
+    return min(max(gid, 0), NP / W - 1) * W + w;
   }
-  __device__ int operator()(int w) const { return base + w; }
 };
 
-// flat: page w of slot b is table[b, w], clamped into the pool; any table
-// (full groups, overcommit's half-groups, fragmented rows).
+// page w of slot b is table[b, w] (clamped into the pool for reads); any
+// table (full groups, overcommit's half-groups, fragmented rows).
 struct TablePages {
-  const int* row;
-  int NP;
-  __device__ TablePages(const int* table, int b, int W, int NP_)
-      : row(table + static_cast<long long>(b) * W), NP(NP_) {}
-  __device__ int operator()(int w) const { return min(max(row[w], 0), NP - 1); }
+  static __device__ int raw(const int* table, int b, int W, int, int w) {
+    return table[static_cast<long long>(b) * W + w];
+  }
 };
 
 // ---------------------------------------------------------------- PTX
@@ -217,17 +281,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 }
 
 // ---------------------------------------------------------------- math
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // Byte k of u (= four signed bytes ^ 0x80808080) as an exact float: the
 // byte, offset by 128, becomes the low mantissa bits of 2^23.
@@ -312,13 +365,24 @@ __device__ __forceinline__ int feature_of(int c, int k, int e, int p,
   }
 }
 
+__device__ __forceinline__ float in_value(const void* p, long long i,
+                                          int bf16) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ float quant(float x, float inv, float qmax) {
+  return fminf(fmaxf(rintf(x * inv), -qmax), qmax);
+}
+
 // ---------------------------------------------------------------- kernel
 
-template <int KIND, int VB, class Pages>
+template <int KIND, int VB, int MODE, class Pages, bool kSliced>
 __global__ void __launch_bounds__(kThreads, 3)
-partial_kernel(const Args a, const Plan pl) {
+attention_kernel(const Args a, const Plan pl) {
   constexpr bool kQuant = KIND != kF32;
   constexpr bool kPacked = KIND == kI4;
+  constexpr bool kFused = MODE == kFusedWrite;
   constexpr int U = VB < 4 ? VB : 4;          // bytes decoded at once
   constexpr int NU = VB / U;                  // units per chunk
   constexpr int EU = KIND == kF32 ? 1 : U;    // storage elements per unit
@@ -326,25 +390,65 @@ partial_kernel(const Args a, const Plan pl) {
   constexpr int FU = kPacked ? 2 * EU : EU;   // features per unit
   constexpr int FPC = NU * FU;                // features per chunk
   constexpr int CPT = kAcc / FPC;             // chunks a thread may own
+  constexpr int ESZ = KIND == kF32 ? 4 : 1;   // bytes of a storage element
 
-  const int b = blockIdx.x;
+  // kSliced: pl.slices blocks (a cluster) share a slot, block `rank` owning
+  // a slice of slice_c chunks of every row
+  const int nsl = kSliced ? pl.slices : 1;
+  const int b = kSliced ? blockIdx.x / nsl : blockIdx.x;
+  const int rank = kSliced ? blockIdx.x - b * nsl : 0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int D = pl.D, H = pl.H, P = pl.P, TR = pl.tile_rows;
-  const int row_b = pl.row_b;
+  const int D = pl.D, H = pl.H, P = pl.P, W = pl.W, NP = pl.NP;
+  const int TR = pl.tile_rows, row_b = pl.row_b;
+  const int NCH = pl.nch, NC = row_b / VB;
+  const int cs0 = kSliced ? rank * pl.slice_c : 0;   // the block's chunks
+  const int NCs = kSliced ? min(pl.slice_c, NC - cs0) : NC;
+  const int sb = NCs * VB;                        // bytes of a row it stages
+  const int SB = kSliced ? pl.slice_b : row_b;    // a staged row's stride
+  const int h_lo = kSliced ? cs0 / NCH : 0;       // its heads
+  const int Hs = kSliced ? (cs0 + NCs - 1) / NCH - h_lo + 1 : H;
+  const int dhk = pl.head_b / ESZ;
   const long long bD = static_cast<long long>(b) * D;
-  // warp 0 holds the page ids and scales of a window of 32 pages, one a
-  // lane. It reads the first window's ids before it knows whether the slot
-  // is live (a dead slot's table row may be read, never the pool), so that
-  // the first copies wait on one round trip to memory, not three.
+  // local feature i of the slice (q's transposed layout: plane p, unit k,
+  // chunk c, element e at ((p * NU + k) * NCs + c) * EU + e) -> feature
+  auto slice_feature = [&](int i) {
+    const int e = i % EU;
+    const int c = (i / EU) % NCs;
+    const int k = (i / (EU * NCs)) % NU;
+    const int p = i / (EU * NCs * NU);
+    return feature_of<KIND, NE, EU>(cs0 + c, k, e, p, dhk);
+  };
+
+  // warp 0 holds the page ids (clamped into the pool) and scales of a
+  // window of 32 pages, one a lane. It reads the first window's ids before
+  // it knows whether the slot is live (a dead slot's table row may be read,
+  // never the pool), so that the first copies wait on one round trip to
+  // memory, not three.
+  auto page_id = [&](int w) {
+    return min(max(Pages::raw(a.table, b, W, NP, w), 0), NP - 1);
+  };
   int win = 0, my_pid = 0;
   float my_ks = 1.0f, my_vs = 1.0f;
-  if (warp == 0 && lane < pl.W) my_pid = Pages(a.table, b, pl.W, pl.NP)(lane);
-  const int L = a.lengths[b] > 0 ? min(max(a.ring_start[b], 0), pl.W * P) : 0;
+  if (warp == 0 && lane < W) my_pid = page_id(lane);
+  int L;
+  if constexpr (MODE == kPartial)
+    L = a.lengths[b] > 0 ? min(max(a.ring_start[b], 0), W * P) : 0;
+  else
+    L = min(max(a.lengths[b], 0), W * P);
   if (L == 0) {
-    for (int c = tid; c < D; c += kThreads) a.out[bD + c] = 0.0f;
-    for (int h = tid; h < H; h += kThreads) {
-      a.m_out[b * H + h] = -CUDART_INF_F;
-      a.l_out[b * H + h] = 0.0f;
+    if constexpr (kSliced) {
+      for (int i = tid; i < NCs * FPC; i += kThreads)
+        a.out[bD + slice_feature(i)] = 0.0f;
+    } else {
+      for (int c = tid; c < D; c += kThreads) a.out[bD + c] = 0.0f;
+    }
+    if constexpr (MODE == kPartial) {
+      if (rank == 0) {
+        for (int h = tid; h < H; h += kThreads) {
+          a.m_out[static_cast<long long>(b) * H + h] = -CUDART_INF_F;
+          a.l_out[static_cast<long long>(b) * H + h] = 0.0f;
+        }
+      }
     }
     return;
   }
@@ -354,14 +458,110 @@ partial_kernel(const Args a, const Plan pl) {
   TileInfo* info = reinterpret_cast<TileInfo*>(smem + 8 * kMaxStages);
   unsigned char* ring = smem + pl.ring_off;
   float* qT = reinterpret_cast<float*>(smem + pl.q_off);
-  float* sc = reinterpret_cast<float*>(smem + pl.sc_off);
+  float* sc = reinterpret_cast<float*>(smem + pl.sc_off);  // [Hs][TR]
+  float* scp = sc + pl.heads_b * TR;         // sliced: partial dots, 2 buffers
   float* hm = reinterpret_cast<float*>(smem + pl.hs_off);
-  float* hl = hm + H;
-  float* ha = hl + H;
+  float* hl = hm + pl.heads_b;
+  float* ha = hl + pl.heads_b;
 
   const int n_tiles = (L + TR - 1) / TR;
   const int n_pages = (L + P - 1) / P;
   const int stages = pl.stages;
+  const int t_last = n_tiles - 1;
+
+  // FusedWrite: the new row sits at position L-1, the last row of the last
+  // tile. own: its raw page id is in the pool, so the row is written there
+  // and the block supplies it to the stage itself; otherwise nothing is
+  // written and the row is read from the (clamped) pool like any other.
+  const int pos = L - 1;
+  int own_pid = 0;
+  bool own = false;
+  if constexpr (kFused) {
+    own_pid = Pages::raw(a.table, b, W, NP, pos / P);
+    own = own_pid >= 0 && own_pid < NP;
+  }
+  // the VB bytes of chunk c of the new row's side (0 K, 1 V), as NU words
+  auto new_words = [&](int side, int c, unsigned (&w)[NU]) {
+    const void* src = side ? a.v_new : a.k_new;
+    const long long base = b * (side ? a.vn_stride : a.kn_stride);
+    float inv = 0.0f;
+    if constexpr (kQuant) {
+      const float sv = (side ? a.v_scales : a.k_scales)[own_pid];
+      inv = sv > 0.0f ? 1.0f / fmaxf(sv, 1e-30f) : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < NU; ++k) {
+      w[k] = 0;
+#pragma unroll
+      for (int e = 0; e < EU; ++e) {
+        const int f = feature_of<KIND, NE, EU>(cs0 + c, k, e, 0, dhk);
+        const float x = in_value(src, base + f, a.in_bf16);
+        if constexpr (KIND == kF32) {
+          w[k] = __float_as_uint(x);
+        } else {
+          float v = quant(x, inv, kPacked ? 7.0f : 127.0f);
+          if constexpr (kPacked)
+            v = 16.0f * quant(in_value(src, base + f + dhk, a.in_bf16), inv,
+                              7.0f) + v;
+          w[k] |= (static_cast<unsigned>(static_cast<int>(v)) & 0xffu)
+                  << (8 * e);
+        }
+      }
+    }
+  };
+  // the new row's K and V bytes of this block's slice, a thread a chunk at a
+  // time (the chunks it owns in P.V): quantized once into the pool
+  // (to_pool), and into row n-1 of stage s (s >= 0) now or later; int8 and
+  // int4 words are kept in registers between the two, float32 ones (32 a
+  // side) are read again
+  unsigned kept[2][kQuant ? CPT : 1][NU];
+  auto put_new_row = [&](bool to_pool, int s) {
+    if constexpr (kFused) {
+      const bool pool_vec = reinterpret_cast<uintptr_t>(a.pool) % VB == 0;
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        unsigned char* dst =
+            a.pool + ((static_cast<long long>(own_pid) * 2 + side) * P +
+                      pos % P) * row_b + cs0 * VB;
+        unsigned char* st =
+            s < 0 ? nullptr
+                  : ring + s * pl.tile_b + (side * TR + pos - t_last * TR) * SB;
+#pragma unroll
+        for (int kc = 0; kc < CPT; ++kc) {
+          const int c = tid + kc * kThreads;
+          if (c >= NCs) continue;
+          unsigned w[NU];
+          if constexpr (kQuant) {
+            if (to_pool) new_words(side, c, kept[side][kc]);
+#pragma unroll
+            for (int k = 0; k < NU; ++k) w[k] = kept[side][kc][k];
+          } else {
+            new_words(side, c, w);
+          }
+          if (st) {
+            if constexpr (VB == 16)
+              *reinterpret_cast<uint4*>(st + c * VB) =
+                  make_uint4(w[0], w[1], w[2], w[3]);
+            else if constexpr (VB == 4)
+              *reinterpret_cast<unsigned*>(st + c * VB) = w[0];
+            else
+              st[c] = static_cast<unsigned char>(w[0]);
+          }
+          if (to_pool) {
+            if (pool_vec && VB == 16) {
+              *reinterpret_cast<uint4*>(dst + c * VB) =
+                  make_uint4(w[0], w[1], w[2], w[3]);
+            } else {
+#pragma unroll
+              for (int i = 0; i < VB; ++i)
+                dst[c * VB + i] =
+                    static_cast<unsigned char>(w[i / 4] >> (8 * (i % 4)));
+            }
+          }
+        }
+      }
+    }
+  };
 
   // the scales of the window's pages (warp 0)
   auto load_scales = [&]() {
@@ -378,8 +578,7 @@ partial_kernel(const Args a, const Plan pl) {
     const int w = t * TR / P;
     if (w >= win + 32) {                       // contexts past 32 pages
       win = w & ~31;
-      if (win + lane < n_pages)
-        my_pid = Pages(a.table, b, pl.W, pl.NP)(win + lane);
+      if (win + lane < n_pages) my_pid = page_id(win + lane);
       load_scales();
     }
     const int pid = __shfl_sync(0xffffffffu, my_pid, w - win);
@@ -388,20 +587,39 @@ partial_kernel(const Args a, const Plan pl) {
     if (lane == 0) info[t % stages] = TileInfo{pid, ks, vs, 0};
     return pid;
   };
-  // tile t's K and V rows of page pid into stage t % stages: two bulk
-  // copies completing on the stage's mbarrier (lane 0 of warp 0)
+  // rows of tile t that come from the pool (the new row of an owned fused
+  // write does not)
+  auto pool_rows = [&](int t) {
+    return min(TR, L - t * TR) - (own && t == t_last ? 1 : 0);
+  };
+  // tile t's K and V rows of page pid into stage t % stages: bulk copies
+  // completing on the stage's mbarrier (lane 0 of warp 0); one copy a side
+  // for a whole row, one a side and row for a slice
   auto copy = [&](int t, int pid) {
     const int s = t % stages;
     const int r0 = t * TR - (t * TR / P) * P;
-    const unsigned bytes = static_cast<unsigned>(min(TR, L - t * TR)) * row_b;
+    const int rows = pool_rows(t);
     const unsigned char* k_src =
-        a.pool + (static_cast<long long>(pid) * 2 * P + r0) * row_b;
+        a.pool + (static_cast<long long>(pid) * 2 * P + r0) * row_b + cs0 * VB;
     unsigned char* dst = ring + s * pl.tile_b;
+    const long long vo = static_cast<long long>(P) * row_b;
     fence_proxy_async();
-    mbar_expect_tx(&bars[s], 2 * bytes);
-    bulk_load(dst, k_src, bytes, &bars[s]);
-    bulk_load(dst + TR * row_b, k_src + static_cast<long long>(P) * row_b,
-              bytes, &bars[s]);
+    mbar_expect_tx(&bars[s], 2u * rows * sb);
+    if constexpr (!kSliced) {
+      if (rows > 0) {
+        const unsigned bytes = static_cast<unsigned>(rows) * row_b;
+        bulk_load(dst, k_src, bytes, &bars[s]);
+        bulk_load(dst + TR * SB, k_src + vo, bytes, &bars[s]);
+      }
+    } else {
+      for (int r = 0; r < rows; ++r) {
+        bulk_load(dst + r * SB, k_src + static_cast<long long>(r) * row_b, sb,
+                  &bars[s]);
+        bulk_load(dst + (TR + r) * SB,
+                  k_src + vo + static_cast<long long>(r) * row_b, sb,
+                  &bars[s]);
+      }
+    }
   };
 
   if (warp == 0) {
@@ -422,24 +640,14 @@ partial_kernel(const Args a, const Plan pl) {
     load_scales();
     for (int t = 0; t < first; ++t) publish(t);
   }
-  // q, transposed by chunk: plane p, unit k, chunk c, element e at
-  // ((p * NU + k) * NC + c) * EU + e, so lanes on consecutive chunks read
+  // the fused write; when the last tile is among the first stages' (a stage
+  // no earlier tile uses), its new row goes into that stage now
+  if (own) put_new_row(true, pl.bulk && t_last < stages ? t_last : -1);
+  // q, transposed by chunk, so that lanes on consecutive chunks read
   // consecutive 16-byte words
-  const int NC = row_b / VB;           // chunks per row
-  const int NCH = pl.head_b / VB;      // chunks per head
-  const int dhk = pl.head_b / (KIND == kF32 ? 4 : 1);
-  for (int i = tid; i < D; i += kThreads) {
-    const int e = i % EU;
-    const int c = (i / EU) % NC;
-    const int k = (i / (EU * NC)) % NU;
-    const int p = i / (EU * NC * NU);
-    const long long src =
-        b * a.q_stride + feature_of<KIND, NE, EU>(c, k, e, p, dhk);
-    qT[i] = a.q_bf16
-                ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.q)[src])
-                : static_cast<const float*>(a.q)[src];
-  }
-  for (int h = tid; h < H; h += kThreads) {
+  for (int i = tid; i < NCs * FPC; i += kThreads)
+    qT[i] = in_value(a.q, b * a.q_stride + slice_feature(i), a.in_bf16);
+  for (int h = tid; h < Hs; h += kThreads) {
     hm[h] = -CUDART_INF_F;
     hl[h] = 0.0f;
   }
@@ -449,85 +657,144 @@ partial_kernel(const Args a, const Plan pl) {
   while (S < NCH && S < 32) S <<= 1;
   const int dpw = 32 / S;              // dots per warp per pass
   const int step = kWarps * dpw;       // dots per pass
-  const int step_r = step / H, step_h = step - step_r * H;
+  const int step_r = step / Hs, step_h = step - step_r * Hs;
   const int d_first = warp * dpw + lane / S, li = lane & (S - 1);
-  const int r_first = d_first / H, h_first = d_first - r_first * H;
+  const int r_first = d_first / Hs, h_first = d_first - r_first * Hs;
   int LH = 1;                          // softmax lanes per head
   while (LH < TR && LH < 32) LH <<= 1;
   const int hpw = 32 / LH;             // heads per warp per round
-  const bool wide = NC > kThreads;     // a thread owns several chunks
-  const int G = wide ? 1 : kThreads / NC;   // P.V row groups
-  const int g = wide ? 0 : tid / NC;
-  const int c0 = wide ? tid : tid - g * NC;
+  const bool wide = NCs > kThreads;    // a thread owns several chunks
+  const int G = wide ? 1 : kThreads / NCs;   // P.V row groups
+  const int g = wide ? 0 : tid / NCs;
+  const int c0 = wide ? tid : tid - g * NCs;
   float acc[CPT][FPC];
 #pragma unroll
   for (int kc = 0; kc < CPT; ++kc)
 #pragma unroll
     for (int i = 0; i < FPC; ++i) acc[kc][i] = 0.0f;
 
+#if RING_PARTIAL_SPLIT == 1
+  // the copies alone: warp 0 waits for every tile and refills its stage
+  if (pl.bulk && warp == 0) {
+    for (int t = 0; t < n_tiles; ++t) {
+      mbar_wait(&bars[t % stages], (t / stages) & 1);
+      if (t + stages < n_tiles) {
+        const int pid = publish(t + stages);
+        if (lane == 0) copy(t + stages, pid);
+      }
+    }
+  }
+  if (pl.bulk) goto epilogue;
+#endif
   for (int t = 0; t < n_tiles; ++t) {
     const int s = t % stages;
     const int n = min(TR, L - t * TR);
     const unsigned char* kt = ring + s * pl.tile_b;
-    const unsigned char* vt = kt + TR * row_b;
+    const unsigned char* vt = kt + TR * SB;
     if (pl.bulk) {
-      mbar_wait(&bars[s], (t / stages) & 1);
+#if RING_PARTIAL_SPLIT == 2
+      if (t < stages)
+#endif
+        mbar_wait(&bars[s], (t / stages) & 1);
     } else {
       // one stage, filled by plain loads: rows that bulk copies cannot move
       if (warp == 0 && t > 0) publish(t);
       __syncthreads();
       const int w = t * TR / P;
       const unsigned char* k_src =
-          a.pool + (static_cast<long long>(info[0].pid) * 2 * P + t * TR - w * P) * row_b;
-      for (int i = tid; i < n * row_b; i += kThreads) {
-        ring[i] = k_src[i];
-        ring[TR * row_b + i] = k_src[static_cast<long long>(P) * row_b + i];
+          a.pool +
+          (static_cast<long long>(info[0].pid) * 2 * P + t * TR - w * P) *
+              row_b + cs0 * VB;
+      const int rows = pool_rows(t);
+      if constexpr (kSliced) {
+        for (int i = tid; i < rows * sb; i += kThreads) {
+          const int r = i / sb, o = i - r * sb;
+          ring[r * SB + o] = k_src[static_cast<long long>(r) * row_b + o];
+          ring[(TR + r) * SB + o] =
+              k_src[static_cast<long long>(P + r) * row_b + o];
+        }
+      } else {
+        for (int i = tid; i < rows * row_b; i += kThreads) {
+          ring[i] = k_src[i];
+          ring[TR * row_b + i] = k_src[static_cast<long long>(P) * row_b + i];
+        }
       }
+      if (own && t == t_last) put_new_row(false, 0);
       __syncthreads();
     }
     const float ks = info[s].ks, vs = info[s].vs;
+    float* dots = kSliced ? scp + (t & 1) * pl.heads_b * TR : sc;
 
-    // ---- scores of the tile's n rows, every head: S lanes a dot, four
-    // independent sums a lane ----
+    // ---- dots of the tile's n rows, every head of the block: S lanes a
+    // dot, four independent sums a lane ----
     int r = r_first, h = h_first;
-    for (int d0 = warp * dpw; d0 < n * H; d0 += step) {
-      const bool valid = d0 + lane / S < n * H;
+    for (int d0 = warp * dpw; d0 < n * Hs; d0 += step) {
+      const bool valid = d0 + lane / S < n * Hs;
       float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       if (valid) {
-        const unsigned char* kr = kt + r * row_b;
-        for (int j = li; j < NCH; j += S) {
-          const int c = h * NCH + j;
+        const unsigned char* kr = kt + r * SB;
+        auto dot_chunk = [&](int c) {
           unsigned wv[NU];
           load_chunk<VB, NU>(kr + c * VB, wv);
 #pragma unroll
           for (int k = 0; k < NU; ++k) {
             float x[FU];
             decode<KIND, U>(wv[k], x);
-            dot_unit<EU>(qT + (k * NC + c) * EU, x, part);
+            dot_unit<EU>(qT + (k * NCs + c) * EU, x, part);
             if constexpr (kPacked)
-              dot_unit<EU>(qT + ((NU + k) * NC + c) * EU, x + EU, part);
+              dot_unit<EU>(qT + ((NU + k) * NCs + c) * EU, x + EU, part);
           }
+        };
+        if constexpr (kSliced) {
+          // the head's chunks within the slice, as local chunk indices
+          const int jb = min((h_lo + h + 1) * NCH, cs0 + NCs) - cs0;
+          for (int c = max((h_lo + h) * NCH, cs0) - cs0 + li; c < jb; c += S)
+            dot_chunk(c);
+        } else {
+          for (int j = li; j < NCH; j += S) dot_chunk(h * NCH + j);
         }
       }
       float dot = (part[0] + part[1]) + (part[2] + part[3]);
       for (int o = S >> 1; o > 0; o >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, o);
-      if (valid && li == 0) sc[h * TR + r] = dot * a.sm_scale * ks;
+      if (valid && li == 0)
+        dots[h * TR + r] = kSliced ? dot : dot * a.sm_scale * ks;
       r += step_r;                     // the next pass's dot: d + step
       h += step_h;
-      if (h >= H) {
-        h -= H;
+      if (h >= Hs) {
+        h -= Hs;
         ++r;
       }
     }
     __syncthreads();
+    if constexpr (kSliced) {
+      // the slices' partial dots summed in rank order (every block alike)
+      // through distributed shared memory; the buffers alternate by tile,
+      // so a block's next write to one follows the next cluster barrier,
+      // which every reader reaches after reading it
+      cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+      cl.sync();
+      for (int i = tid; i < Hs * n; i += kThreads) {
+        const int hh = i / n, rr = i - hh * n;
+        const int hg = h_lo + hh;
+        const int q0 = hg * NCH / pl.slice_c;
+        const int q1 = min(((hg + 1) * NCH - 1) / pl.slice_c, nsl - 1);
+        float sum = 0.0f;
+        for (int qr = q0; qr <= q1; ++qr) {
+          const float* peer = cl.map_shared_rank(dots, qr);
+          sum += peer[(hg - qr * pl.slice_c / NCH) * TR + rr];
+        }
+        sc[hh * TR + rr] = sum * a.sm_scale * ks;
+      }
+      __syncthreads();
+    }
 
     // ---- online softmax, LH lanes a head (the tile's rows, at most 32),
     // several heads a warp: m, l, the rescale of o, and the tile's weights
     // (V page scale folded in) ----
-    for (int h0 = warp * hpw; h0 < H; h0 += kWarps * hpw) {
+    for (int h0 = warp * hpw; h0 < Hs; h0 += kWarps * hpw) {
       const int hh = h0 + lane / LH, lr = lane & (LH - 1);
-      const bool vh = hh < H;
+      const bool vh = hh < Hs;
       float* sh = sc + (vh ? hh : 0) * TR;
       float mt = -CUDART_INF_F;
       if (vh)
@@ -561,8 +828,8 @@ partial_kernel(const Args a, const Plan pl) {
 #pragma unroll
       for (int kc = 0; kc < CPT; ++kc) {
         const int c = c0 + kc * kThreads;
-        if (c >= NC || (kc > 0 && !wide)) continue;
-        const int hc = c / NCH;
+        if (c >= NCs || (kc > 0 && !wide)) continue;
+        const int hc = (cs0 + c) / NCH - h_lo;
         const float alpha = ha[hc];
 #pragma unroll
         for (int i = 0; i < FPC; ++i) acc[kc][i] *= alpha;
@@ -571,7 +838,7 @@ partial_kernel(const Args a, const Plan pl) {
         for (int rr = g; rr < n; rr += G) {
           const float wr = wh[rr];
           unsigned wv[NU];
-          load_chunk<VB, NU>(vt + rr * row_b + c * VB, wv);
+          load_chunk<VB, NU>(vt + rr * SB + c * VB, wv);
 #pragma unroll
           for (int k = 0; k < NU; ++k) {
             float x[FU];
@@ -584,26 +851,39 @@ partial_kernel(const Args a, const Plan pl) {
       }
     }
     __syncthreads();
-    if (pl.bulk && warp == 0 && t + stages < n_tiles) {
-      const int pid = publish(t + stages);
-      if (lane == 0) copy(t + stages, pid);
+#if RING_PARTIAL_SPLIT != 2
+    if (pl.bulk && t + stages < n_tiles) {
+      // stage s passes to tile t + stages; an owned new row goes into it
+      // now, into bytes the copy leaves alone (the next barrier makes it
+      // visible before that tile is read)
+      if (own && t + stages == t_last) put_new_row(false, s);
+      if (warp == 0) {
+        const int pid = publish(t + stages);
+        if (lane == 0) copy(t + stages, pid);
+      }
     }
+#endif
   }
+  if constexpr (kSliced)
+    cooperative_groups::this_cluster().sync();   // peers read our dots
 
+#if RING_PARTIAL_SPLIT == 1
+epilogue:
+#endif
   // ---- the row groups' sums (in the ring, free now), o / l, m, l ----
   if (G > 1) {
     float* red = reinterpret_cast<float*>(ring);
     if (g >= 1 && g < G) {
 #pragma unroll
       for (int i = 0; i < FPC; ++i)
-        red[((g - 1) * NC + c0) * FPC + i] = acc[0][i];
+        red[((g - 1) * NCs + c0) * FPC + i] = acc[0][i];
     }
     __syncthreads();
     if (g == 0) {
       for (int gg = 1; gg < G; ++gg) {
 #pragma unroll
         for (int i = 0; i < FPC; ++i)
-          acc[0][i] += red[((gg - 1) * NC + c0) * FPC + i];
+          acc[0][i] += red[((gg - 1) * NCs + c0) * FPC + i];
       }
     }
   }
@@ -611,8 +891,8 @@ partial_kernel(const Args a, const Plan pl) {
 #pragma unroll
     for (int kc = 0; kc < CPT; ++kc) {
       const int c = c0 + kc * kThreads;
-      if (c >= NC || (kc > 0 && !wide)) continue;
-      const float l = hl[c / NCH];
+      if (c >= NCs || (kc > 0 && !wide)) continue;
+      const float l = hl[(cs0 + c) / NCH - h_lo];
       float* o = a.out + bD;
       // runs of 4 consecutive features are 16-byte aligned when a unit
       // holds 4 elements, or a float32 chunk 4 features
@@ -624,75 +904,120 @@ partial_kernel(const Args a, const Plan pl) {
           const float4 v = make_float4(acc[kc][i] / l, acc[kc][i + 1] / l,
                                        acc[kc][i + 2] / l, acc[kc][i + 3] / l);
           *reinterpret_cast<float4*>(
-              o + feature_of<KIND, NE, EU>(c, k, e, p, dhk)) = v;
+              o + feature_of<KIND, NE, EU>(cs0 + c, k, e, p, dhk)) = v;
         }
       } else {
 #pragma unroll
         for (int i = 0; i < FPC; ++i) {
           const int k = i / FU, f = i - k * FU;
           const int p = f / EU, e = f - p * EU;
-          o[feature_of<KIND, NE, EU>(c, k, e, p, dhk)] = acc[kc][i] / l;
+          o[feature_of<KIND, NE, EU>(cs0 + c, k, e, p, dhk)] = acc[kc][i] / l;
         }
       }
     }
   }
-  for (int hh = tid; hh < H; hh += kThreads) {
-    a.m_out[b * H + hh] = hm[hh];
-    a.l_out[b * H + hh] = hl[hh];
+  if constexpr (MODE == kPartial) {
+    // a head's m and l come from the block holding its first chunk
+    for (int hh = tid; hh < Hs; hh += kThreads) {
+      if ((h_lo + hh) * NCH < cs0) continue;
+      a.m_out[static_cast<long long>(b) * H + h_lo + hh] = hm[hh];
+      a.l_out[static_cast<long long>(b) * H + h_lo + hh] = hl[hh];
+    }
   }
 }
 
 constexpr int kMaxDevices = 64;
 
-// Launches above 48 KB of shared memory need the kernel's attribute raised.
-// It is set only when a launch asks for more than this instantiation was
-// allowed so far on the current device, not on every launch.
-template <int KIND, int VB, class Pages>
-cudaError_t run(const Args& a, const Plan& pl, int B, cudaStream_t stream) {
-  auto kernel = partial_kernel<KIND, VB, Pages>;
-  if (pl.smem > 48 * 1024) {
+// Launches above 48 KB of shared memory need the kernel's attribute raised,
+// and clusters above 8 blocks the non-portable size allowed. Each is set
+// only when a launch asks for more than this instantiation was allowed so
+// far on the current device, not on every launch.
+template <int KIND, int VB, int MODE, class Pages, bool kSliced>
+cudaError_t run_kernel(const Args& a, const Plan& pl, int B,
+                       cudaStream_t stream) {
+  auto kernel = attention_kernel<KIND, VB, MODE, Pages, kSliced>;
+  if (pl.smem > 48 * 1024 || pl.slices > 8) {
     static std::mutex mu;
     static int allowed[kMaxDevices] = {};
+    static bool wide[kMaxDevices] = {};
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
     std::lock_guard<std::mutex> lock(mu);
-    if (dev >= kMaxDevices || pl.smem > allowed[dev]) {
+    const bool known = dev < kMaxDevices;
+    if (pl.smem > 48 * 1024 && (!known || pl.smem > allowed[dev])) {
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
       if (err != cudaSuccess) return err;
-      if (dev < kMaxDevices) allowed[dev] = pl.smem;
+      if (known) allowed[dev] = pl.smem;
+    }
+    if (pl.slices > 8 && (!known || !wide[dev])) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return err;
+      if (known) wide[dev] = true;
     }
   }
-  kernel<<<B, kThreads, pl.smem, stream>>>(a, pl);
+  if constexpr (!kSliced) {
+    kernel<<<B, kThreads, pl.smem, stream>>>(a, pl);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B) * pl.slices);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = pl.slices;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a, pl);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <int KIND, int VB, int MODE, class Pages>
+cudaError_t run(const Args& a, const Plan& pl, int B, cudaStream_t stream) {
+  return pl.slices > 1
+             ? run_kernel<KIND, VB, MODE, Pages, true>(a, pl, B, stream)
+             : run_kernel<KIND, VB, MODE, Pages, false>(a, pl, B, stream);
 }
 
 // Plan and launch one call over B slots; kind as PoolKind (kWithInt4:
 // whether packed int4 pools are taken). Returns the cudaError_t of the
 // launch (0 = launched).
-template <class Pages, bool kWithInt4>
+template <class Pages, int MODE, bool kWithInt4>
 int launch(int kind, const Args& a, int B, int D, int NP, int P, int W,
            int H, cudaStream_t stream) {
   if (B <= 0) return 0;
   if (kind == kI4 && !kWithInt4) return cudaErrorInvalidValue;
+  if (kind != kF32 && (a.k_scales == nullptr || a.v_scales == nullptr))
+    return cudaErrorInvalidValue;
+  if (MODE == kPartial && (a.ring_start == nullptr || a.m_out == nullptr ||
+                           a.l_out == nullptr))
+    return cudaErrorInvalidValue;
+  if (MODE == kFusedWrite && (a.k_new == nullptr || a.v_new == nullptr))
+    return cudaErrorInvalidValue;
   Plan pl;
   const bool aligned = reinterpret_cast<uintptr_t>(a.pool) % 16 == 0;
   if (!make_plan(pl, kind, D, H, P, W, NP, aligned))
     return cudaErrorInvalidValue;
   switch (kind * 100 + pl.vb) {
-    case kF32 * 100 + 16: return run<kF32, 16, Pages>(a, pl, B, stream);
-    case kF32 * 100 + 4: return run<kF32, 4, Pages>(a, pl, B, stream);
-    case kI8 * 100 + 16: return run<kI8, 16, Pages>(a, pl, B, stream);
-    case kI8 * 100 + 4: return run<kI8, 4, Pages>(a, pl, B, stream);
-    case kI8 * 100 + 1: return run<kI8, 1, Pages>(a, pl, B, stream);
+    case kF32 * 100 + 16: return run<kF32, 16, MODE, Pages>(a, pl, B, stream);
+    case kF32 * 100 + 4: return run<kF32, 4, MODE, Pages>(a, pl, B, stream);
+    case kI8 * 100 + 16: return run<kI8, 16, MODE, Pages>(a, pl, B, stream);
+    case kI8 * 100 + 4: return run<kI8, 4, MODE, Pages>(a, pl, B, stream);
+    case kI8 * 100 + 1: return run<kI8, 1, MODE, Pages>(a, pl, B, stream);
     default: break;
   }
   if constexpr (kWithInt4) {
     switch (pl.vb) {
-      case 16: return run<kI4, 16, Pages>(a, pl, B, stream);
-      case 4: return run<kI4, 4, Pages>(a, pl, B, stream);
-      case 1: return run<kI4, 1, Pages>(a, pl, B, stream);
+      case 16: return run<kI4, 16, MODE, Pages>(a, pl, B, stream);
+      case 4: return run<kI4, 4, MODE, Pages>(a, pl, B, stream);
+      case 1: return run<kI4, 1, MODE, Pages>(a, pl, B, stream);
       default: break;
     }
   }
@@ -706,4 +1031,5 @@ inline long long smem_bytes(int kind, int D, int H, int P) {
   return make_plan(pl, kind, D, H, P, 1, 1, true) ? pl.smem : -1;
 }
 
+}  // namespace
 }  // namespace ring_partial

@@ -6,8 +6,10 @@ into its own shared library for Hopper (``sm_90a``), loaded with ctypes.
 by the host C++ compiler (``c++``). Libraries are built at first use into
 ``_build/`` inside the package (listed in .gitignore), named by a hash of
 the source, the ``csrc/*.cuh`` headers and the flags so that an edit
-rebuilds. Nothing here runs at import time: the CPU tests import every
-module, and the CPU has no ``nvcc``.
+rebuilds. A source may also be built with preprocessor defines (the timing
+variants of ``csrc/ring_partial.cuh``, ``RING_PARTIAL_SPLIT``) into a
+library of its own. Nothing here runs at import time: the CPU tests import
+every module, and the CPU has no ``nvcc``.
 
 No ``--use_fast_math``: the kernels' quantizers must round exactly as the
 plain versions do (IEEE ``1.0f / s``, ``rintf``).
@@ -33,9 +35,9 @@ SOURCES = ("paged_attention_grouped.cu", "paged_attention_dgrid.cu",
 HOST_SOURCES = ("scheduler.cpp",)
 # dynamic shared memory a block may use on Hopper (227 KB)
 MAX_SMEM = 232448
-# widest q row the ring-partial kernels take (csrc/ring_partial.cuh: 128
-# threads x 32 accumulators)
-MAX_FEATURES = 4096
+# widest q row the attention kernels take (csrc/ring_partial.cuh: a
+# cluster of 16 blocks of 128 threads x 32 accumulators)
+MAX_FEATURES = 65536
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,8 +49,16 @@ def _is_host(source: str) -> bool:
     return source.endswith(".cpp")
 
 
-def _flags(source: str) -> tuple:
-    return CXX_FLAGS if _is_host(source) else NVCC_FLAGS
+def _flags(source: str, defines: tuple = ()) -> tuple:
+    if _is_host(source):
+        return CXX_FLAGS
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def build_item(item) -> tuple:
+    """(source, defines) of a build item: a source name, or (source,
+    defines)."""
+    return (item, ()) if isinstance(item, str) else (item[0], tuple(item[1]))
 
 
 def _nvcc() -> str:
@@ -71,10 +81,11 @@ def _cxx() -> str:
                        "native scheduler cannot be built")
 
 
-def library_path(source: str) -> str:
-    """The library of ``source``, named by a hash of the source, the headers
-    under csrc/ (a .cu may include them) and the flags."""
-    digest = hashlib.sha256(" ".join(_flags(source)).encode())
+def library_path(source: str, defines: tuple = ()) -> str:
+    """The library of ``source`` built with ``defines``, named by a hash of
+    the source, the headers under csrc/ (a .cu may include them) and the
+    flags."""
+    digest = hashlib.sha256(" ".join(_flags(source, defines)).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for name in (source, *([] if _is_host(source) else headers)):
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
@@ -84,26 +95,29 @@ def library_path(source: str) -> str:
 
 
 def build(sources=SOURCES) -> dict:
-    """Compile every source whose library is missing, one compiler process
-    per source (``nvcc`` for .cu, ``c++`` for .cpp), all started together.
-    Returns {source: seconds} for the sources compiled by this call; raises
-    with the compiler's output on failure."""
+    """Compile every item whose library is missing (an item: a source name,
+    or (source, defines)), one compiler process per item (``nvcc`` for .cu,
+    ``c++`` for .cpp), all started together. Returns {item: seconds} for
+    the items compiled by this call; raises with the compiler's output on
+    failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    todo = [s for s in sources if not os.path.exists(library_path(s))]
+    todo = [i for i in sources
+            if not os.path.exists(library_path(*build_item(i)))]
     if not todo:
         return {}
     compilers = {}
     procs = []
-    for src in todo:
+    for item in todo:
+        src, defines = build_item(item)
         kind = "host" if _is_host(src) else "cuda"
         if kind not in compilers:
             compilers[kind] = _cxx() if kind == "host" else _nvcc()
-        out = library_path(src)
+        out = library_path(src, defines)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [compilers[kind], *_flags(src), "-o", tmp,
+        cmd = [compilers[kind], *_flags(src, defines), "-o", tmp,
                os.path.join(CSRC_DIR, src)]
-        procs.append((src, out, tmp, time.perf_counter(), subprocess.Popen(
+        procs.append((item, out, tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     took, failed = {}, []
     for src, out, tmp, t0, proc in procs:
@@ -121,10 +135,11 @@ def build(sources=SOURCES) -> dict:
     return took
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The library of one source, built first if needed."""
-    build((source,))
-    return ctypes.CDLL(library_path(source))
+def load(source: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The library of one source (built with ``defines``), built first if
+    needed."""
+    build(((source, defines),))
+    return ctypes.CDLL(library_path(source, defines))
 
 
 def check_rows(name, t, B, D, dtype, device) -> None:

@@ -10,7 +10,8 @@ Counterpart of min_llm_inference_tpu/ops/paged_attention.py
   lengths:    [B] int32             0 = dead slot
   page_table: [B, W] int32          any page ids (fragmented tables)
   k/v_scales: [NP] f32              per-page scales (int8 pools only)
-Returns [B, D] float32, exact zeros for dead slots.
+Returns [B, D] float32, exact zeros for dead slots. Any context width W*P,
+rows of at most 65536 features.
 
 The wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; it never falls back.
@@ -34,10 +35,12 @@ _IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def paged_decode_attention(q, kv_pages, lengths, page_table, k_scales=None,
                            v_scales=None, *, n_heads: int = 1):
-    """Length-masked attention of each slot's q over its pages, dequantized
-    first (K and V rows times their page's scale, as the JAX kernel does).
-    Raises for a packed int4 pool (feature width D/2), as the JAX engine
-    asserts: int4 goes to the grouped kernel."""
+    """Length-masked attention of each slot's q over its pages, int8 rows
+    scaled by their page's scale (the plain version and the JAX kernel
+    scale the rows before the dots, the CUDA kernel the scores and the
+    weights after them: equal up to float32 rounding). Raises for a packed
+    int4 pool (feature width D/2), as the JAX engine asserts: int4 goes to
+    the grouped kernel."""
     if q.dim() != 2 or kv_pages.dim() != 4:
         raise ValueError("q must be [B, D] and kv_pages [NP, 2, P, D]")
     if kv_pages.shape[-1] != q.shape[-1]:
@@ -71,22 +74,26 @@ def paged_decode_attention_plain(q, kv_pages, lengths, page_table,
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    """The kernel's library (built on first use) with its C signatures."""
-    lib = _build.load(_SOURCE)
+def _library(defines: tuple = ()) -> ctypes.CDLL:
+    """The kernel's library (built on first use, with the preprocessor
+    ``defines`` of a timing variant) with its C signatures."""
+    lib = _build.load(_SOURCE, defines)
     vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     lib.mli_paged_attention.argtypes = [
-        vp, ll, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, f, vp,
+        vp, ll, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, f, vp,
     ]
     lib.mli_paged_attention.restype = ctypes.c_int
-    lib.mli_paged_attention_smem.argtypes = [i, i, i, i, i, i]
+    lib.mli_paged_attention_smem.argtypes = [i, i, i, i]
     lib.mli_paged_attention_smem.restype = ctypes.c_longlong
     lib.mli_error_string.argtypes = [i]
     lib.mli_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, n_heads):
+def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, n_heads,
+            defines=()):
+    """Check the inputs and launch the kernel (``defines``: a timing variant
+    of it, whose output is meaningless)."""
     dev = q.device
     B, D = q.shape
     NP, two, P, _ = kv_pages.shape
@@ -109,17 +116,12 @@ def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, n_heads):
     if quantized:
         check_contig("k_scales", k_scales, (NP,), torch.float32, dev)
         check_contig("v_scales", v_scales, (NP,), torch.float32, dev)
-    # 16-byte loads need every head's row segment and the pool base 16-byte
-    # aligned; otherwise one element per load
-    elem = kv_pages.element_size()
-    vec16 = ((D // n_heads) * elem % 16 == 0
-             and kv_pages.data_ptr() % 16 == 0)
-    lib = _library()
+    lib = _library(defines)
     kind = _POOL_KINDS[kv_pages.dtype]
-    smem = lib.mli_paged_attention_smem(D, n_heads, W, P, kind, int(vec16))
-    if smem > _build.MAX_SMEM:
-        raise ValueError(f"kernel needs {smem} B of shared memory (> "
-                         f"{_build.MAX_SMEM}): context W*P={W * P} too long")
+    smem = lib.mli_paged_attention_smem(D, n_heads, P, kind)
+    if not 0 < smem <= _build.MAX_SMEM:
+        raise ValueError(f"the kernel does not take rows of {D} features "
+                         f"in {n_heads} heads (at most {_build.MAX_FEATURES})")
     out = torch.empty((B, D), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -129,7 +131,7 @@ def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, n_heads):
             k_scales.data_ptr() if quantized else None,
             v_scales.data_ptr() if quantized else None,
             out.data_ptr(), B, D, NP, P, W, n_heads, kind,
-            _IN_DTYPES[q.dtype], int(vec16), inv_sqrt(D // n_heads), stream,
+            _IN_DTYPES[q.dtype], inv_sqrt(D // n_heads), stream,
         )
     _build.check(lib, rc, "paged_decode_attention kernel")
     paged_decode_attention.launches += 1

@@ -9,7 +9,8 @@ group allocator), so the pool ``[NP, 2, P, D]`` is also the dense group
 view ``[NG, W, 2, P, D]``; the pool is read-only and holds positions <
 ring_start. float32 and int8 pools (packed int4 is rejected, as in the
 JAX package), any number of heads and any table width, rows of at most
-4096 features.
+65536 features (rows past 4096 features are cut into feature slices,
+one block each, in a thread block cluster).
 
 The wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; it never falls back.

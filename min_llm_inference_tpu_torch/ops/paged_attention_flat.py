@@ -9,7 +9,8 @@ online-softmax partial over them for ``merge_ring_partial``. Token t of a
 slot is read from page ``page_table[b, t // P]``, so any table works: full
 groups, overcommit's half-groups, fragmented rows. float32, int8 and packed
 int4 pools, any number of heads and any table width, rows of at most
-4096 features.
+65536 features (rows past 4096 features are cut into feature slices,
+one block each, in a thread block cluster).
 
 The TPU kernel's arguments that chose its DMA runs, VMEM blocks and
 layout (``group_size``, ``pages_per_compute_block``, ``pages_per_dma``,

@@ -4,7 +4,7 @@ the wrapper of the hand-written Hopper kernel
 
 Counterpart of min_llm_inference_tpu/ops/paged_attention_grouped.py
 (the Pallas TPU kernel) in its three modes: (a) plain, (b) fused write,
-(c) ring partial.
+(c) ring partial. Any context width W*P, rows of at most 65536 features.
 
 The wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; it never falls back.
@@ -107,16 +107,17 @@ def paged_decode_attention_grouped_plain(
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    """The kernel's library (built on first use) with its C signatures."""
-    lib = _build.load(_SOURCE)
+def _library(defines: tuple = ()) -> ctypes.CDLL:
+    """The kernel's library (built on first use, with the preprocessor
+    ``defines`` of a timing variant) with its C signatures."""
+    lib = _build.load(_SOURCE, defines)
     vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     lib.mli_grouped_attention.argtypes = [
         vp, ll, vp, vp, vp, vp, vp, vp, ll, vp, ll, vp, vp, vp, vp,
-        i, i, i, i, i, i, i, i, i, f, vp,
+        i, i, i, i, i, i, i, i, f, vp,
     ]
     lib.mli_grouped_attention.restype = ctypes.c_int
-    lib.mli_grouped_attention_smem.argtypes = [i, i, i, i, i]
+    lib.mli_grouped_attention_smem.argtypes = [i, i, i, i]
     lib.mli_grouped_attention_smem.restype = ctypes.c_longlong
     lib.mli_error_string.argtypes = [i]
     lib.mli_error_string.restype = ctypes.c_char_p
@@ -124,7 +125,9 @@ def _library() -> ctypes.CDLL:
 
 
 def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, k_new,
-            v_new, ring_start, n_heads, packed_int4):
+            v_new, ring_start, n_heads, packed_int4, defines=()):
+    """Check the inputs and launch the kernel (``defines``: a timing variant
+    of it, whose output is meaningless)."""
     dev = q.device
     if q.dim() != 2 or kv_pages.dim() != 4:
         raise ValueError("q must be [B, D] and kv_pages [NP, 2, P, Dk]")
@@ -159,16 +162,11 @@ def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, k_new,
     if ring:
         check_contig("ring_start", ring_start, (B,), torch.int32, dev)
     pool_kind = 2 if packed_int4 else _POOL_KINDS[kv_pages.dtype]
-    # 4-element loads need every head's row segment and the pool base
-    # 4-element aligned (16 B for float32, 4 B for int8)
-    align = 4 * kv_pages.element_size()
-    vec = 4 if ((Dk // n_heads) % 4 == 0
-                and kv_pages.data_ptr() % align == 0) else 1
-    lib = _library()
-    smem = lib.mli_grouped_attention_smem(D, n_heads, W, P, pool_kind)
-    if smem > _build.MAX_SMEM:
-        raise ValueError(f"kernel needs {smem} B of shared memory (> "
-                         f"{_build.MAX_SMEM}): context W*P={W * P} too long")
+    lib = _library(defines)
+    smem = lib.mli_grouped_attention_smem(D, n_heads, P, pool_kind)
+    if not 0 < smem <= _build.MAX_SMEM:
+        raise ValueError(f"the kernel does not take rows of {D} features "
+                         f"in {n_heads} heads (at most {_build.MAX_FEATURES})")
     out = torch.empty((B, D), dtype=torch.float32, device=dev)
     if ring:
         m = torch.empty((B, n_heads), dtype=torch.float32, device=dev)
@@ -189,7 +187,7 @@ def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, k_new,
             m.data_ptr() if ring else None,
             l.data_ptr() if ring else None,
             B, D, NP, P, W, n_heads, pool_kind,
-            _IN_DTYPES[q.dtype], vec, inv_sqrt(D // n_heads), stream,
+            _IN_DTYPES[q.dtype], inv_sqrt(D // n_heads), stream,
         )
     _build.check(lib, rc, "paged_decode_attention_grouped kernel")
     paged_decode_attention_grouped.launches += 1

@@ -55,21 +55,38 @@ def stale_dead_rows(rng, table, lengths):
         table[d] = table[rng.choice(live)]
 
 
-def grouped_inputs(rng, dev, kv, B, W, P, D, in_dtype, fragmented=False):
+def out_of_range(rng, table, lengths, NP, P):
+    """Put page ids outside the pool (-1 or NP + 5) into some live slots'
+    rows: at the page of their last position (the fused write's page) for
+    a few, at an earlier page for others. Reads clamp them into the pool;
+    a fused write there is dropped."""
+    live = np.nonzero(lengths > 0)[0]
+    for i, b in enumerate(live[1::3]):
+        col = (lengths[b] - 1) // P if i % 2 == 0 else 0
+        table[b, col] = -1 if i % 4 < 2 else NP + 5
+
+
+def grouped_inputs(rng, dev, kv, B, W, P, D, in_dtype, fragmented=False,
+                   lengths=None, oob=False):
     """Fused-write inputs: contiguous page groups (or, ``fragmented``, a
     shuffled table whose dead rows hold live slots' page ids), dead slots,
-    page-boundary inserts, scales already updated for the fresh pages."""
+    page-boundary inserts (or the given ``lengths``), page ids outside the
+    pool (``oob``), scales already updated for the fresh pages."""
     NG = B + 2
     NP = NG * W
     packed = kv == "int4"
     Dk = D // 2 if packed else D
     gids = rng.permutation(NG)[:B]
     table = (gids[:, None] * W + np.arange(W)[None, :]).astype(np.int32)
-    lengths = rng.integers(0, W * P + 1, B).astype(np.int32)
-    lengths[:6] = [0, 1, P - 1, P, P + 1, W * P]
+    if lengths is None:
+        lengths = rng.integers(0, W * P + 1, B).astype(np.int32)
+        lengths[:6] = [0, 1, P - 1, P, P + 1, W * P]
+    lengths = np.asarray(lengths, np.int32)
     if fragmented:
         table = rng.permutation(NP)[:B * W].reshape(B, W).astype(np.int32)
         stale_dead_rows(rng, table, lengths)
+    if oob:
+        out_of_range(rng, table, lengths, NP, P)
     if packed:
         pool = (16 * rng.integers(-7, 8, (NP, 2, P, Dk))
                 + rng.integers(-7, 8, (NP, 2, P, Dk))).astype(np.int8)
@@ -297,17 +314,19 @@ def test_prefill_quant_scatter_matches_plain(cuda, in_dtype, D):
     assert not torch.equal(pool_k, pool)
 
 
-def one_slot_inputs(rng, dev, kv, B, W, P, D, in_dtype):
+def one_slot_inputs(rng, dev, kv, B, W, P, D, in_dtype, oob=False):
     """One-slot attention inputs as the host scheduler leaves them: a
     shuffled (fragmented) table, dead slots whose stale rows point at live
     slots' pages, lengths on page boundaries and mid-page, q a column slice
-    of one fused [B, 3D] projection."""
+    of one fused [B, 3D] projection (``oob``: page ids outside the pool)."""
     NP = B * W + 3
     table = rng.permutation(NP)[:B * W].reshape(B, W).astype(np.int32)
     lengths = rng.integers(1, W * P + 1, B).astype(np.int32)
     lengths[:7] = [0, 1, P - 1, P, P + 1, W * P, 0]
     lengths[rng.random(B) < 0.15] = 0
     stale_dead_rows(rng, table, lengths)
+    if oob:
+        out_of_range(rng, table, lengths, NP, P)
     if kv == "int8":
         pool = rng.integers(-127, 128, (NP, 2, P, D)).astype(np.int8)
     else:
@@ -529,6 +548,168 @@ def test_flat_rejects_unsupported_inputs(cuda):
                                     ring_start=x["rs"])
     with pytest.raises(ValueError):     # the ring partial only
         paged_decode_attention_flat(x["q"], x["pool"], *args[:4])
+
+
+def assert_close(got, want, tol=1e-4):
+    """Within tol * max(1, |want|max): float32 sums in another order."""
+    lim = tol * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= lim
+
+
+def check_one_slot(x, H):
+    """The one-slot kernel and its plain version on the inputs ``x``: one
+    launch, the pool unchanged, o within 1e-4 * max(1, |o|), dead rows
+    exactly zero."""
+    args = (x["q"], x["pool"], x["lengths"], x["table"], x["ks"], x["vs"])
+    pool0 = x["pool"].clone()
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(*args, n_heads=H)
+    want = paged_decode_attention_plain(*args, n_heads=H)
+    assert paged_decode_attention.launches == before + 1
+    assert torch.equal(x["pool"], pool0)
+    assert_close(got, want)
+    assert torch.all(got[x["lengths"] == 0] == 0)
+
+
+def check_grouped(x, H, packed, mode):
+    """The grouped kernel in mode (a) or (b) and its plain version on the
+    inputs ``x``: one launch; (b) pool bytes bit-identical, (a) the pool
+    unchanged; o within 1e-4 * max(1, |o|); dead rows exactly zero.
+    Returns the kernel's pool."""
+    rest = (x["lengths"], x["table"], x["ks"], x["vs"])
+    kw = dict(n_heads=H, packed_int4=packed)
+    new = (x["k_new"], x["v_new"]) if mode == "b" else ()
+    pool_k, pool_p = x["pool"].clone(), x["pool"].clone()
+    before = paged_decode_attention_grouped.launches
+    got = paged_decode_attention_grouped(x["q"], pool_k, *rest, *new, **kw)
+    want = paged_decode_attention_grouped_plain(x["q"], pool_p, *rest, *new,
+                                                **kw)
+    assert paged_decode_attention_grouped.launches == before + 1
+    if mode == "b":
+        (got, _), (want, _) = got, want
+    else:
+        assert torch.equal(pool_k, x["pool"])
+    assert torch.equal(pool_k, pool_p)
+    assert_close(got, want)
+    assert torch.all(got[x["lengths"] == 0] == 0)
+    return pool_k
+
+
+def check_mode_c(x, H):
+    """The grouped kernel's ring partial (mode c) and its plain version."""
+    args = (x["q"], x["pool"], x["lengths"], x["table"], x["ks"], x["vs"])
+    kw = dict(ring_start=x["rs"], n_heads=H,
+              packed_int4=x["pool"].shape[-1] * 2 == x["q"].shape[-1])
+    pool0 = x["pool"].clone()
+    got = paged_decode_attention_grouped(*args, **kw)
+    want = paged_decode_attention_grouped_plain(*args, **kw)
+    assert torch.equal(x["pool"], pool0)
+    assert_partials_close(got, want, x["lengths"], x["rs"])
+
+
+def attention_case(cuda, kind, kv, B, W, P, D, H, seed, **extra):
+    """Inputs for ``kind`` ("one-slot", "a", "b", "c") and the check."""
+    rng = np.random.default_rng(seed)
+    if kind == "one-slot":
+        check_one_slot(one_slot_inputs(rng, cuda, kv, B, W, P, D,
+                                       torch.bfloat16, **extra), H)
+    elif kind == "c":
+        x = partial_inputs(rng, cuda, kv, B, W, P, D, torch.bfloat16)
+        x["rs"][7] = W * P
+        x["lengths"][7] = W * P
+        check_mode_c(x, H)
+    else:
+        check_grouped(grouped_inputs(rng, cuda, kv, B, W, P, D,
+                                     torch.bfloat16, **extra), H,
+                      kv == "int4", kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,kv", [
+    ("one-slot", "int8"), ("a", "int8"), ("a", "int4"), ("b", "int8"),
+    ("b", "int4"), ("c", "int8"), ("c", "int4")])
+def test_attention_long_context(cuda, kind, kv):
+    """W*P = 4096 (W 128, P 32) at 12 heads of emb 768: contexts that the
+    kernels which kept a whole context's scores in shared memory refused
+    (one-slot above ~3,340, grouped above ~3,790); lengths at 1, P-1, P,
+    P+1 and W*P."""
+    attention_case(cuda, kind, kv, 24, 128, 32, 768, 12, 90 + len(kind))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,kv,D", [
+    ("one-slot", "int8", 8192), ("one-slot", "float32", 8192),
+    ("a", "int8", 8192), ("b", "int8", 8192), ("b", "int4", 8192),
+    ("c", "int8", 8192),
+    ("one-slot", "float32", 57344),    # the widest row the earlier one-slot
+])                                     # kernel took: 14 slices
+def test_attention_wide_rows(cuda, kind, kv, D):
+    """Rows wider than one block's 4096 features, in one head, at W*P =
+    128: cut into feature slices, one block each, in a cluster."""
+    if D > 8192:
+        attention_case(cuda, kind, kv, 8, 2, 16, D, 1, 7)
+    else:
+        attention_case(cuda, kind, kv, 32, 4, 32, D, 1, 8 + len(kind))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["int8", "int4"])
+def test_fused_write_positions(cuda, kv):
+    """The fused write at every position class of the new row (first,
+    middle and last row of a tile, first and last row of a page), with the
+    last tile among the ring's first stages and past them, and write pages
+    outside the pool; 50 repeats from the same pool, each with pool bytes
+    identical to the plain version's and o within 1e-4 * max(1, |o|)."""
+    lengths = [0, 1, 4, 8, 9, 12, 16, 17, 20, 24, 25, 31, 32, 33, 36, 40, 47,
+               48, 49, 64, 65, 72, 96, 97, 100, 112, 127, 128, 0, 3]
+    x = grouped_inputs(np.random.default_rng(12 + len(kv)), cuda, kv,
+                       len(lengths), 4, 32, 2048, torch.bfloat16,
+                       lengths=lengths, oob=True)
+    rest = (x["lengths"], x["table"], x["ks"], x["vs"], x["k_new"],
+            x["v_new"])
+    kw = dict(n_heads=1, packed_int4=kv == "int4")
+    pool_p = x["pool"].clone()
+    want, _ = paged_decode_attention_grouped_plain(x["q"], pool_p, *rest,
+                                                   **kw)
+    assert not torch.equal(pool_p, x["pool"])
+    for _ in range(50):
+        pool_k = x["pool"].clone()
+        got, _ = paged_decode_attention_grouped(x["q"], pool_k, *rest, **kw)
+        assert torch.equal(pool_k, pool_p)
+        assert_close(got, want)
+        assert torch.all(got[x["lengths"] == 0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,kv", [
+    ("one-slot", "int8"), ("a", "int8"), ("b", "int8"), ("b", "int4")])
+@pytest.mark.parametrize("B", [61, 512])
+def test_attention_batch_sizes(cuda, kind, kv, B):
+    """61 slots and the drained 512 at the gpt2s widths (emb 768, 12
+    heads), with page ids outside the pool in some live rows."""
+    attention_case(cuda, kind, kv, B, 4, 32, 768, 12, B + len(kind),
+                   oob=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["a", "b", "c"])
+def test_grouped_all_dead(cuda, kind):
+    """Every slot dead, table rows holding live pages: nothing is read or
+    written, o = 0 (mode c: the empty partial)."""
+    rng = np.random.default_rng(61)
+    if kind == "c":
+        x = partial_inputs(rng, cuda, "int8", 16, 4, 16, 96, torch.float32)
+        x["lengths"].zero_()
+        o, m, l = paged_decode_attention_grouped(
+            x["q"], x["pool"], x["lengths"], x["table"], x["ks"], x["vs"],
+            ring_start=x["rs"], n_heads=12)
+        assert torch.all(o == 0) and torch.all(l == 0)
+        assert torch.all(torch.isneginf(m))
+        return
+    x = grouped_inputs(rng, cuda, "int8", 16, 4, 16, 96, torch.float32,
+                       lengths=np.zeros(16, np.int32))
+    pool = check_grouped(x, 12, False, kind)
+    assert torch.equal(pool, x["pool"])
 
 
 @pytest.mark.cuda
