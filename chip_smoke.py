@@ -51,10 +51,18 @@ Phases, one line each; any failure raises and exits non-zero:
      from a numpy seed the bench_params way), int4 paged KV (4096 pages of
      32 rows), 1024 slots, 16 rounds per burst in 2 sub-bursts, 24 bursts
      per status read, no decode ring; 2048 requests with prompts uniform in
-     [1, 64]. One warm run (its host syncs counted), one timed run with
-     every kernel launch counter set to 0 just before it, and one more run
-     whose middle kernel call is copied and replayed: kernel vs plain
-     version on real inputs, timed beside its bound;
+     [1, 64]. The engine runs each burst as one CUDA graph (the liveness
+     gate and the prefill bucket as IF nodes), captured in its first run.
+     One warm run of 64 requests (the capture: one [graph] line per width
+     with capture and instantiate seconds, pool bytes and node count; its
+     host syncs counted: two uploads, one status read per chunk, the final
+     pull), one timed run that replays the graph, with every kernel launch
+     counter set to 0 just before it (a replay counts its launches on the
+     device), and the same request stream on the eager path (which reads
+     the gate and the bucket on the host): its tokens must equal the
+     graph's ([graph] line with both walls), and its middle kernel call is
+     copied and replayed: kernel vs plain version on real inputs, timed
+     beside its bound;
   6. the gpt2s path at full width, as ``python bench.py --model gpt2s``
      runs the JAX package: the 12-layer GPT-2-small-class model (emb 768,
      12 heads, FFN 3072, pre-LN, output projection, bf16 weights made from
@@ -62,10 +70,9 @@ Phases, one line each; any failure raises and exits non-zero:
      rows), 1024 slots, 16 rounds per burst with a per-burst decode ring,
      the dgrid partial, sort_admits, 6 bursts per status read and the drain
      downshift to 512 slots; 2048 requests with prompts uniform in [1, 64].
-     A warm run of 64 requests (its host syncs counted), one timed run with
-     every launch counter set to 0 just before it, and one replay run whose
-     middle call of each of its kernels is copied and replayed against the
-     plain version;
+     The warm run, timed run and eager run of phase 5: the eager run's
+     middle call of each kernel is copied and replayed against the plain
+     version;
   7. the host path at full width, as ``python bench.py --engine host
      --attention pallas`` runs the JAX package: PagedEngine (Python page
      scheduler, two-deep pipelined loop) on the one-slot kernel, phase 5's
@@ -78,18 +85,25 @@ Phases, one line each; any failure raises and exits non-zero:
   8. the flat path at full width, as ``python bench.py --ring`` runs the
      JAX package with ``attn_flat``: phase 5's model and request stream
      with int4 KV, the decode ring carried across 2 sub-bursts and flushed
-     once per burst, and the flat ring partial. A warm run (host syncs
-     counted), a timed run with every launch counter set to 0 just before
-     it (flat launches = rounds, one flush per executed burst, no other
-     attention kernel), and a replay run whose middle flat and flush calls
-     are replayed against the plain versions;
+     once per burst, and the flat ring partial. The warm, timed and eager
+     runs of phase 5 (flat launches = rounds, one flush per executed burst,
+     no other attention kernel); the eager run's middle flat and flush
+     calls are replayed against the plain versions;
   9. the overcommit path at full width, as ``python bench.py --overcommit
      --pages 3072`` runs the JAX package: phase 5's model and request
      stream with int8 KV, no ring, 2 sub-bursts, half-group grants (1536
      half-units for 1024 slots whose requests mostly need two), growth
-     and youngest-first preemption. A warm run (host syncs counted), a
-     timed run that must preempt, and a replay of its middle fused-write
-     call.
+     and youngest-first preemption. The warm, timed (it must preempt) and
+     eager runs of phase 5, and a replay of the eager run's middle
+     fused-write call;
+ 10. the stream path: StreamingSession on phase 5's graph engine serves its
+     2048 requests in waves of 256 into a ring of 1024 rows, dispatching a
+     burst per step and observing each two bursts later; every request
+     must equal the one-shot timed run's tokens ([stream] line with the
+     wall).
+With --profile, one more run of each full-width path under torch.profiler
+once all ten phases have run ([profile] lines, device time by kernel in
+DIR/<path>_kernels.txt).
 Then a [kernel_device] line per timed check (the kernel's device time alone,
 by CUDA events behind a device sleep, device_ev_ms, and from
 torch.profiler, device_ms; taken after every path so that the profiler's
@@ -106,8 +120,10 @@ import argparse
 import collections
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -138,6 +154,9 @@ SPLIT_VARIANTS = {"kernel": (), "copies": ("RING_PARTIAL_SPLIT=1",),
 SPLIT_SOURCES = ("paged_attention.cu", "paged_attention_grouped.cu")
 # device cycles a device_ev_ms call waits before each timed call (~0.5 ms)
 SLEEP_CYCLES = 1_000_000
+# the stream path: its ring of prompt rows and its submission waves
+STREAM_CAPACITY = 1024
+STREAM_WAVE = 256
 
 
 T0 = time.perf_counter()
@@ -277,6 +296,11 @@ def bound_of(nbytes, ops) -> tuple:
 
 # (case, result, kernel call) of every timed check, for device_times()
 DEVICE_PENDING = []
+# (run, its unprofiled wall, path) of every path to profile once all paths
+# have run (``--profile``): a graph captured after a torch.profiler session
+# faulted with an illegal address when replayed under a later one, and the
+# profiler's host cost stays out of every path's wall
+PROFILE_PENDING = []
 
 
 def timed_pair(name, res, kernel_fn, plain_fn, bound,
@@ -307,7 +331,8 @@ def device_times(iters: int = 20) -> None:
 def log_result(name, check, res) -> None:
     """The [kernel] line of one check: what held and the numbers."""
     log("kernel", case=name, **check, **{
-        k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in res.items()})
+        k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in res.items()
+        if not isinstance(v, dict)})
 
 
 def grouped_bound(live_lens, calls, B, D, Dk, W, P, in_bytes, pool_bytes,
@@ -918,6 +943,11 @@ def check_probe(dev):
                bound_of(P * Dk + P * P * 4, 2 * P * P * D))
     xf = unpack_int4(x[0], 1) * pr.SCALE
     res["library_ms"] = time_ms(lambda: torch.matmul(xf, xf.t()), 20)
+    # the yardstick on the kernel's footing: the device time of the unpack
+    # and torch.matmul together (the plain version), beside the kernel's
+    res["yardstick"] = {}
+    DEVICE_PENDING.append(("int4-probe-unpack+matmul", res["yardstick"],
+                           lambda: pr.int4_page_self_dot_plain(x)))
     log_result("int4-probe", {"out": "equal"}, res)
     return launches, res
 
@@ -969,14 +999,25 @@ def make_store(T, prompts):
 
 def parity(T, dev, model, params, cfg, prompts, label):
     """The engine's kernel path ("grouped") against its gather oracle
-    ("torch", which never takes the ring), token for token. Returns the
-    generated token count and the kernel path's stats."""
+    ("torch", which never takes the ring), token for token, each on the
+    graph. Each engine runs the prompts twice: the first run captures its
+    graphs (after an eager warm-up burst per width, whose launches count
+    too), the second replays them and is the one held and counted.
+    Returns the generated token count, the kernel path's stats and the
+    launches by kernel name of both engines' second runs."""
     outs, stats = {}, None
+    kernels = counters()
+    launches = {name: 0 for name in kernels}
     for impl in ("grouped", "torch"):
-        store = make_store(T, prompts)
         eng = T.AutonomousEngine(params, model, cfg, attention_impl=impl,
                                  device=dev)
+        eng.run(make_store(T, prompts))
+        eng.stats = T.BurstStats()
+        before = {name: k.launches for name, k in kernels.items()}
+        store = make_store(T, prompts)
         eng.run(store)
+        for name, k in kernels.items():
+            launches[name] += k.launches - before[name]
         stats = stats or eng.stats
         outs[impl] = [store.finished[i].tokens for i in range(len(prompts))]
     if outs["grouped"] != outs["torch"]:
@@ -985,17 +1026,13 @@ def parity(T, dev, model, params, cfg, prompts, label):
         raise AssertionError(f"engine parity {label}: request {first} "
                              f"{outs['grouped'][first]} vs "
                              f"{outs['torch'][first]}")
-    return sum(len(o) - len(p) for o, p in zip(outs["grouped"], prompts)), stats
+    return (sum(len(o) - len(p) for o, p in zip(outs["grouped"], prompts)),
+            stats, launches)
 
 
 def engine_parity(T, dev) -> int:
     """Phase 4. Returns the grouped kernel's mode-(c) launches (the ring
     configs with dgrid off)."""
-    from min_llm_inference_tpu_torch.ops import paged_attention_dgrid as dg
-    from min_llm_inference_tpu_torch.ops import paged_attention_grouped as gr
-    from min_llm_inference_tpu_torch.ops import prefill_scatter as ps
-    from min_llm_inference_tpu_torch.ops import ring_flush as rf
-
     model = T.ModelConfig(n_vocab=256, emb_dim=32, n_seq=64, eof_token_id=255)
     params = T.params_from_numpy(
         numpy_init_params(np.random.default_rng(1), model, 0.05), model, dev)
@@ -1006,7 +1043,7 @@ def engine_parity(T, dev) -> int:
         cfg = T.EngineConfig(n_slots=8, page_size=16, n_pages=32,
                              n_forward_rounds=4, subbursts=2, kv_dtype=kv,
                              decode_ring=False)
-        n_gen, _ = parity(T, dev, model, params, cfg, prompts, kv)
+        n_gen, _, _ = parity(T, dev, model, params, cfg, prompts, kv)
         log("engine", kv=kv, requests=len(prompts), generated=n_gen,
             tokens="grouped == torch")
     # ring decode on a small gpt2s-shaped model (multi-head, LN, wo, FFN)
@@ -1023,13 +1060,12 @@ def engine_parity(T, dev) -> int:
         cfg = T.EngineConfig(n_slots=8, page_size=16, n_pages=32,
                              n_forward_rounds=4, kv_dtype=kv,
                              decode_ring=True, **extra)
-        counters = (gr.paged_decode_attention_grouped, dg.dgrid_paged_partial,
-                    rf.ring_flush, ps.prefill_quant_scatter)
-        for c in counters:
-            c.launches = 0
         label = f"ring-{kv}-" + "-".join(f"{k}={v}" for k, v in extra.items())
-        n_gen, _ = parity(T, dev, gmodel, gparams, cfg, prompts, label)
-        got = [c.launches for c in counters]
+        n_gen, _, launched = parity(T, dev, gmodel, gparams, cfg, prompts,
+                                    label)
+        got = [launched[n] for n in (
+            "paged_decode_attention_grouped", "dgrid_paged_partial",
+            "ring_flush", "prefill_quant_scatter")]
         if (got[1] > 0) != cfg.attn_dgrid or got[2] == 0 or (
                 (got[0] > 0) == cfg.attn_dgrid):
             raise AssertionError(f"{label}: launches grouped/dgrid/flush/"
@@ -1051,7 +1087,6 @@ def variant_parity(T, dev) -> int:
     kernel once per round and layer (the dense view is plain PyTorch and
     launches none); every overcommit config preempts. Returns the flat
     kernel's launches."""
-    kernels = counters()
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, 255, int(rng.integers(1, 24))).tolist()
                for _ in range(24)]
@@ -1092,14 +1127,12 @@ def variant_parity(T, dev) -> int:
     for label, H, ps, extra, kname in cases:
         model, params = models[H]
         cfg = T.EngineConfig(**{**base, **extra})
-        for k in kernels.values():
-            k.launches = 0
-        n_gen, st = parity(T, dev, model, params, cfg, ps, label)
-        got = {n: kernels[n].launches for n in attention}
+        n_gen, st, launched = parity(T, dev, model, params, cfg, ps, label)
+        got = {n: launched[n] for n in attention}
         want = {n: 0 for n in attention}
         if kname:
             want[kname] = st.rounds * model.n_layers
-        flushes = kernels["ring_flush"].launches
+        flushes = launched["ring_flush"]
         if got != want or (flushes > 0) != cfg.decode_ring or (
                 cfg.overcommit and st.preemptions == 0):
             raise AssertionError(
@@ -1221,15 +1254,18 @@ def make_prompts(n, seed, V):
 
 
 def drive(T, dev, params, model, cfg, n, seed, engine_kw, count_syncs=False,
-          engine_cls=None):
+          engine_cls=None, engine=None):
     """One engine run of ``n`` requests, timed by the host clock around
-    work that ends synchronized: AutonomousEngine on its kernel path
-    ("grouped"), or ``engine_cls`` with ``engine_kw``. With count_syncs,
-    PyTorch's sync debug mode records every device sync of the run; the
-    engine gets ``syncs_seen`` (those made from the package's code) and
-    ``sync_sites``."""
+    work that ends synchronized: ``engine`` (its stats from zero), else a
+    new AutonomousEngine on its kernel path ("grouped"), or ``engine_cls``
+    with ``engine_kw``. With count_syncs, PyTorch's sync debug mode records
+    every device sync of the run; the engine gets ``syncs_seen`` (those
+    made from the package's code) and ``sync_sites``."""
     store = make_store(T, make_prompts(n, seed, model.n_vocab))
-    if engine_cls is None:
+    if engine is not None:
+        eng = engine
+        eng.stats = T.BurstStats()
+    elif engine_cls is None:
         eng = T.AutonomousEngine(params, model, cfg, attention_impl="grouped",
                                  device=dev, **engine_kw)
     else:
@@ -1260,19 +1296,68 @@ def drive(T, dev, params, model, cfg, n, seed, engine_kw, count_syncs=False,
     return eng, store, time.perf_counter() - t0
 
 
+def auto_runner(T, dev, params, model, cfg, engine_kw, dot_dir):
+    """run(n, seed, count_syncs=False, capture=True) of an AutonomousEngine
+    path: one engine on the CUDA graph (its graphs written to ``dot_dir``
+    for their node counts) and one on the eager path (``capture=False``,
+    the check path that reads the gate and the bucket on the host), each
+    made at its first run and kept, so that a later run of the same queue
+    shape replays the first run's graphs."""
+    engines = {}
+
+    def run(n, seed, count_syncs=False, capture=True):
+        if capture not in engines:
+            engines[capture] = T.AutonomousEngine(
+                params, model, cfg, attention_impl="grouped", device=dev,
+                _capture=capture, _graph_dot_dir=dot_dir if capture else None,
+                **engine_kw)
+        return drive(T, dev, params, model, cfg, n, seed, engine_kw,
+                     count_syncs, engine=engines[capture])
+
+    return run
+
+
 def warm_and_check_syncs(run, label):
-    """A 64-request warm run (cuBLAS handles, allocator pools, kernel
-    libraries). PyTorch's sync debug mode sees every sync of the run; the
-    engine must account for each one made from the package's code (all
-    sites are printed)."""
+    """A 64-request warm run: the engine's first, so it captures one graph
+    per executed width (after an eager burst per width that runs every
+    branch: cuBLAS handles, allocator pools, kernel libraries). PyTorch's
+    sync debug mode sees every sync of the run; the engine must account
+    for each one made from the package's code (all sites are printed), and
+    makes none inside a burst: two uploads, one status read per chunk and
+    the final pull. One [graph] line per captured width."""
     warm, _, _ = run(64, seed=1, count_syncs=True)
-    log("syncs", path=label, requests=64, bursts=warm.stats.bursts,
-        engine_count=warm.stats.host_syncs, seen_in_package=warm.syncs_seen,
+    st = warm.stats
+    want = 2 + -(-st.bursts // warm.chunk) + 1
+    log("syncs", path=label, requests=64, bursts=st.bursts,
+        chunks=-(-st.bursts // warm.chunk), engine_count=st.host_syncs,
+        seen_in_package=warm.syncs_seen, captures=st.captures,
         sites=warm.sync_sites)
-    if warm.syncs_seen != warm.stats.host_syncs:
+    if warm.syncs_seen != st.host_syncs or st.host_syncs != want:
         raise AssertionError(f"{label}: {warm.syncs_seen} device syncs in "
                              f"the run, the engine accounts for "
-                             f"{warm.stats.host_syncs}")
+                             f"{st.host_syncs}, expected {want}")
+    if st.captures != len(warm.graph_info) or not st.captures:
+        raise AssertionError(f"{label}: {st.captures} captures")
+    for b, g in sorted(warm.graph_info.items(), reverse=True):
+        log("graph", path=label, width=b, capture_s=f"{g['capture_s']:.4f}",
+            instantiate_s=f"{g['instantiate_s']:.4f}",
+            pool_bytes=g["pool_bytes"], nodes=g["nodes"])
+
+
+def graph_vs_eager(label, eng, store, wall, e_eng, e_store, e_wall):
+    """The timed run on the graph against the same request stream on the
+    eager path, token for token; one [graph] line with both walls."""
+    for rid, req in store.finished.items():
+        if e_store.finished[rid].tokens != req.tokens:
+            raise AssertionError(f"{label}: request {rid} differs between "
+                                 "the graph and the eager path")
+    log("graph", path=label, requests=len(store.finished),
+        tokens="graph == eager", graph_wall_s=f"{wall:.4f}",
+        eager_wall_s=f"{e_wall:.4f}", graph_bursts=eng.stats.bursts,
+        eager_bursts=e_eng.stats.bursts,
+        graph_syncs_per_burst=f"{eng.stats.host_syncs / eng.stats.bursts:.3f}",
+        eager_syncs_per_burst=
+        f"{e_eng.stats.host_syncs / e_eng.stats.bursts:.3f}")
 
 
 def check_outputs(store, n_req, S, V):
@@ -1290,10 +1375,10 @@ def check_outputs(store, n_req, S, V):
     return total
 
 
-def ref_model_run(T, dev, label, **cfg_kw):
+def ref_model_run(T, dev, label, dot_dir, **cfg_kw):
     """The reference-parity model, request stream and engine options of
     phase 5 under the engine options ``cfg_kw``: (model, cfg, run(n, seed,
-    count_syncs)), after the warm run's sync check."""
+    count_syncs, capture)), after the warm run's sync check."""
     V, D, S = MAIN["n_vocab"], MAIN["emb_dim"], MAIN["n_seq"]
     model = T.ModelConfig(n_vocab=V, emb_dim=D, n_seq=S, eof_token_id=V - 1,
                           dtype="bfloat16")
@@ -1305,24 +1390,24 @@ def ref_model_run(T, dev, label, **cfg_kw):
         bench_params(np.random.default_rng(0), V, D, S, V - 1), model, dev)
     engine_kw = dict(max_new_per_burst=512, bursts_per_chunk=24,
                      request_capacity=MAIN["requests"])
-
-    def run(n, seed, count_syncs=False):
-        return drive(T, dev, params, model, cfg, n, seed, engine_kw,
-                     count_syncs)
-
+    run = auto_runner(T, dev, params, model, cfg, engine_kw, dot_dir)
     warm_and_check_syncs(run, label)
     return model, cfg, run
 
 
 def timed_run(run, n_req, want_of, label):
-    """The timed run of a path (``n_req`` requests, seed 2): every launch
-    counter set to 0 just before it, read just after and held against ``want_of(stats)`` (launches by
+    """The timed run of a path (``n_req`` requests, seed 2), a replay of
+    the warm run's graphs: every launch counter set to 0 just before it,
+    read just after and held against ``want_of(stats)`` (launches by
     kernel name; every kernel not named must launch 0 times). Returns
     (engine, store, wall, launches)."""
     kernels = counters()
     for k in kernels.values():
         k.launches = 0
     eng, store, wall = run(n_req, seed=2)
+    if eng.stats.captures:
+        raise AssertionError(f"{label}: the timed run captured instead of "
+                             "replaying the warm run's graphs")
     launches = {name: k.launches for name, k in kernels.items()}
     want = {name: 0 for name in kernels}
     want.update(want_of(eng.stats))
@@ -1331,10 +1416,11 @@ def timed_run(run, n_req, want_of, label):
     return eng, store, wall, launches
 
 
-def main_path(T, dev, gpu_line, profile_dir=None):
+def main_path(T, dev, gpu_line, dot_dir, profile_dir=None):
     """Phase 5: the reference path at full width. Returns (the fused-write
-    kernel's launches in the timed run, the replayed call's result)."""
-    model, cfg, run = ref_model_run(T, dev, "main", kv_dtype="int4",
+    kernel's launches in the timed run, the replayed call's result, (the
+    graph engine, the timed run's store))."""
+    model, cfg, run = ref_model_run(T, dev, "main", dot_dir, kv_dtype="int4",
                                     decode_ring=False)
     D, S, n_req = model.emb_dim, model.n_seq, MAIN["requests"]
     eng, store, wall, counts = timed_run(run, n_req, lambda st: {
@@ -1357,22 +1443,25 @@ def main_path(T, dev, gpu_line, profile_dir=None):
         mean_live_context=f"{ctx.mean():.2f}",
         mean_live_slots_per_launch=f"{ctx.size / launches:.1f}",
         kernel_bound_ms_per_launch=f"{run_bound / launches:.6g}")
-    # one call of that run replayed on its real inputs: kernel vs plain
+    # one call of that run's request stream on the eager path (which equals
+    # the graph token for token) replayed on its real inputs: kernel vs
+    # plain
     call_ix = launches // 2
-    snaps = capture_calls(lambda: run(n_req, seed=2), {
+    snaps, eager = capture_calls(lambda: run(n_req, seed=2, capture=False), {
         "grouped": ("models.paged", "paged_decode_attention_grouped",
                     call_ix)})
+    graph_vs_eager("main", eng, store, wall, *eager)
     args, kw = snaps["grouped"]
     names = ("q", "pool", "lengths", "table", "ks", "vs", "k_new", "v_new")
     res = check_grouped(f"main-path-call-{call_ix}",
                         dict(zip(names, args), kw=kw), timed=True)
     res["run_bound_ms_per_launch"] = run_bound / launches
     if profile_dir:
-        profile_path(lambda: run(n_req, seed=2), profile_dir, wall, "main")
-    return launches, res
+        PROFILE_PENDING.append((lambda: run(n_req, seed=2), wall, "main"))
+    return launches, res, (eng, store)
 
 
-def gpt2s_path(T, dev, gpu_line, profile_dir=None):
+def gpt2s_path(T, dev, gpu_line, dot_dir, profile_dir=None):
     """Phase 6: the gpt2s path at full width. Returns (launches by kernel
     name of the timed run, {kernel name: replayed-call result})."""
     g = GPT2S
@@ -1393,11 +1482,7 @@ def gpt2s_path(T, dev, gpu_line, profile_dir=None):
         numpy_init_params(np.random.default_rng(0), model, 0.0), model, dev)
     engine_kw = dict(max_new_per_burst=512, bursts_per_chunk=6,
                      min_drain_slots=512, request_capacity=n_req)
-
-    def run(n, seed, count_syncs=False):
-        return drive(T, dev, params, model, cfg, n, seed, engine_kw,
-                     count_syncs)
-
+    run = auto_runner(T, dev, params, model, cfg, engine_kw, dot_dir)
     warm_and_check_syncs(run, "gpt2s")
     eng, store, wall, launches = timed_run(run, n_req, lambda st: {
         "dgrid_paged_partial": st.rounds * L,
@@ -1417,8 +1502,9 @@ def gpt2s_path(T, dev, gpu_line, profile_dir=None):
              "ring_flush": ("runtime.autonomous", "ring_flush"),
              "prefill_quant_scatter": ("models.paged",
                                        "prefill_quant_scatter")}
-    snaps = capture_calls(lambda: run(n_req, seed=2), {
+    snaps, eager = capture_calls(lambda: run(n_req, seed=2, capture=False), {
         n: (*calls[n], launches[n] // 2) for n in names})
+    graph_vs_eager("gpt2s", eng, store, wall, *eager)
     res = {}
     args, kw = snaps["dgrid_paged_partial"]
     q, pool, ks, vs, rs, lens, table = args
@@ -1439,7 +1525,7 @@ def gpt2s_path(T, dev, gpu_line, profile_dir=None):
         dict(zip(("pool", "k", "v", "pid", "inv_k", "inv_v"), args)),
         timed=True)
     if profile_dir:
-        profile_path(lambda: run(n_req, seed=2), profile_dir, wall, "gpt2s")
+        PROFILE_PENDING.append((lambda: run(n_req, seed=2), wall, "gpt2s"))
     return launches, res
 
 
@@ -1517,7 +1603,7 @@ def host_path(T, dev, gpu_line, profile_dir=None):
         kernel_bound_ms_per_launch=f"{run_bound / n_launch:.6g}",
         host_phase_s=host_s)
     # the middle call of each kernel of that run, replayed on its inputs
-    snaps = capture_calls(lambda: run(n_req, seed=2), {
+    snaps, _ = capture_calls(lambda: run(n_req, seed=2), {
         "paged_decode_attention": ("models.paged", "paged_decode_attention",
                                    n_launch // 2),
         "prefill_quant_scatter": ("models.paged", "prefill_quant_scatter",
@@ -1555,18 +1641,18 @@ def host_path(T, dev, gpu_line, profile_dir=None):
         iterations=n_eng.stats.bursts, preemptions=n_eng.stats.preemptions,
         host_phase_s=native_s, tokens="native == python")
     if profile_dir:
-        profile_path(lambda: run(n_req, seed=2), profile_dir, wall, "host")
+        PROFILE_PENDING.append((lambda: run(n_req, seed=2), wall, "host"))
     return launches, res
 
 
-def flat_path(T, dev, gpu_line, profile_dir=None):
+def flat_path(T, dev, gpu_line, dot_dir, profile_dir=None):
     """Phase 8: the reference model with int4 KV on the decode ring (one
     ring across 2 sub-bursts, one flush per burst) and the flat partial.
     Returns (launches by kernel name of the timed run, {kernel name:
     replayed-call result})."""
     model, cfg, run = ref_model_run(
-        T, dev, "flat", kv_dtype="int4", decode_ring=True, burst_flush=True,
-        attn_flat=True)
+        T, dev, "flat", dot_dir, kv_dtype="int4", decode_ring=True,
+        burst_flush=True, attn_flat=True)
     L = model.n_layers
     eng, store, wall, launches = timed_run(run, MAIN["requests"], lambda st: {
         "paged_decode_attention_flat": st.rounds * L,
@@ -1582,9 +1668,12 @@ def flat_path(T, dev, gpu_line, profile_dir=None):
     # the middle flat and flush calls of that run, replayed on their inputs
     n_flat = launches["paged_decode_attention_flat"]
     n_flush = launches["ring_flush"]
-    snaps = capture_calls(lambda: run(MAIN["requests"], seed=2), {
-        "flat": ("models.paged", "paged_decode_attention_flat", n_flat // 2),
-        "flush": ("runtime.autonomous", "ring_flush", n_flush // 2)})
+    snaps, eager = capture_calls(
+        lambda: run(MAIN["requests"], seed=2, capture=False), {
+            "flat": ("models.paged", "paged_decode_attention_flat",
+                     n_flat // 2),
+            "flush": ("runtime.autonomous", "ring_flush", n_flush // 2)})
+    graph_vs_eager("flat", eng, store, wall, *eager)
     args, kw = snaps["flat"]
     names = ("q", "pool", "lengths", "table", "ks", "vs", "rs")
     res = {"paged_decode_attention_flat": check_partial(
@@ -1597,18 +1686,18 @@ def flat_path(T, dev, gpu_line, profile_dir=None):
         dict(zip(("pool", "ring", "rs", "lengths", "table"), args),
              n_rounds=kw["n_rounds"], r0=kw["ring_r0"]), timed=True)
     if profile_dir:
-        profile_path(lambda: run(MAIN["requests"], seed=2), profile_dir, wall,
-                     "flat")
+        PROFILE_PENDING.append((lambda: run(MAIN["requests"], seed=2), wall,
+                                "flat"))
     return launches, res
 
 
-def overcommit_path(T, dev, gpu_line, profile_dir=None):
+def overcommit_path(T, dev, gpu_line, dot_dir, profile_dir=None):
     """Phase 9: the reference model with int8 KV, no ring, under
     overcommit on OVERCOMMIT_PAGES pages. The timed run must preempt.
     Returns (launches by kernel name of the timed run, the replayed
     fused-write call's result, preemptions)."""
     model, cfg, run = ref_model_run(
-        T, dev, "overcommit", kv_dtype="int8", decode_ring=False,
+        T, dev, "overcommit", dot_dir, kv_dtype="int8", decode_ring=False,
         overcommit=True, n_pages=OVERCOMMIT_PAGES)
     L = model.n_layers
     eng, store, wall, launches = timed_run(run, MAIN["requests"], lambda st: {
@@ -1628,17 +1717,77 @@ def overcommit_path(T, dev, gpu_line, profile_dir=None):
         raise AssertionError(f"overcommit on {cfg.n_pages} pages never "
                              "preempted")
     n_call = launches["paged_decode_attention_grouped"] // 2
-    snaps = capture_calls(lambda: run(MAIN["requests"], seed=2), {
-        "grouped": ("models.paged", "paged_decode_attention_grouped",
-                    n_call)})
+    snaps, eager = capture_calls(
+        lambda: run(MAIN["requests"], seed=2, capture=False), {
+            "grouped": ("models.paged", "paged_decode_attention_grouped",
+                        n_call)})
+    graph_vs_eager("overcommit", eng, store, wall, *eager)
     args, kw = snaps["grouped"]
     names = ("q", "pool", "lengths", "table", "ks", "vs", "k_new", "v_new")
     res = check_grouped(f"overcommit-call-{n_call}",
                         dict(zip(names, args), kw=kw), timed=True)
     if profile_dir:
-        profile_path(lambda: run(MAIN["requests"], seed=2), profile_dir, wall,
-                     "overcommit")
+        PROFILE_PENDING.append((lambda: run(MAIN["requests"], seed=2), wall,
+                                "overcommit"))
     return launches, res, st.preemptions
+
+
+def stream_path(T, gpu_line, eng, oneshot):
+    """Phase 10: online serving at the reference path's configuration.
+    StreamingSession on the main path's graph engine (its own buffers and
+    graph, captured when it is made) serves phase 5's 2048 requests: waves
+    of STREAM_WAVE submitted whenever the ring of STREAM_CAPACITY rows has
+    room, one burst dispatched per step, each burst's status and
+    final_lens observed two bursts later, completions polled from those
+    snapshots. Every request must equal the one-shot timed run's tokens."""
+    V = MAIN["n_vocab"]
+    n_req = MAIN["requests"]
+    prompts = make_prompts(n_req, 2, V)
+    kernels = counters()
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess = T.StreamingSession(eng, capacity=STREAM_CAPACITY,
+                              max_prompt_len=64, observe_lag=2)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    done, submitted, waves, steps = {}, 0, 0, 0
+    t0 = time.perf_counter()
+    while len(done) < n_req:
+        take = min(STREAM_WAVE, n_req - submitted)
+        if take and sess.free_capacity >= take:
+            sess.submit([T.Request(i, list(prompts[i]))
+                         for i in range(submitted, submitted + take)])
+            submitted += take
+            waves += 1
+        sess.dispatch()
+        steps += 1
+        s = sess.observe()
+        if s is not None and s["finished_total"]:
+            for r in sess.poll(s["fin_lens"], s["n_submitted_at"]):
+                done[r.id] = r
+        if steps > 20 * n_req:
+            raise AssertionError(f"stream: {len(done)}/{n_req} finished")
+    for r in sess.close():
+        done[r.id] = r
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = 0
+    for rid, req in done.items():
+        if req.tokens != oneshot.finished[rid].tokens:
+            raise AssertionError(f"stream: request {rid} differs from the "
+                                 "one-shot run")
+        total += len(req.tokens) - req.prompt_len
+    st = sess.stats
+    log("stream", requests=n_req, generated=total, wall_s=f"{wall:.4f}",
+        tok_s=f"{total / wall:.1f}", setup_s=f"{setup_s:.4f}",
+        capacity=STREAM_CAPACITY, waves=waves, bursts=st.bursts,
+        skipped=st.skipped, rounds=st.rounds,
+        host_syncs_per_burst=f"{st.host_syncs / st.bursts:.3f}",
+        tokens="stream == one-shot", gpu=f"'{gpu_line}'",
+        **{f"launches_{k}": v.launches for k, v in kernels.items()
+           if v.launches})
 
 
 def phase_seconds(stats) -> str:
@@ -1650,10 +1799,11 @@ def phase_seconds(stats) -> str:
 
 
 def capture_calls(run, targets):
-    """Run once more with call sites wrapped and return, for each target
-    ``label: (module under the package, attribute, call index)``, a copy
-    (strides kept) of the positional and keyword arguments of that call,
-    taken before the call writes anything."""
+    """Run once more with call sites wrapped and return (for each target
+    ``label: (module under the package, attribute, call index)`` a copy,
+    strides kept, of the positional and keyword arguments of that call,
+    taken before the call writes anything; what run() returned). The run
+    must be eager: a graph replay calls no wrapper."""
     import importlib
 
     def copy(x):
@@ -1680,7 +1830,7 @@ def capture_calls(run, targets):
         setattr(mod, attr, wrapped)
         patched.append((mod, attr, real, calls))
     try:
-        run()
+        result = run()
     finally:
         for mod, attr, real, _ in patched:
             setattr(mod, attr, real)
@@ -1689,7 +1839,7 @@ def capture_calls(run, targets):
         raise AssertionError(f"the replay made "
                              f"{[c[0] for *_, c in patched]} calls, none at "
                              f"the index of {missing}")
-    return snaps
+    return snaps, result
 
 
 def profile_path(run, out_dir, wall_unprofiled, label):
@@ -1769,7 +1919,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="also profile one run of each full-width path "
-                         "into DIR")
+                         "into DIR, once every path has run")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1921,19 +2071,26 @@ def main() -> int:
     one_slot_engine = host_parity(T, dev)
     # ms, plain_ms and bound_ms: one call of each path replayed on its real
     # inputs; launches: each path's timed run
-    ref_launches, ref = main_path(T, dev, gpu_line, args.profile)
+    dot_dir = tempfile.mkdtemp(prefix="burst-graphs-")
+    ref_launches, ref, (ref_eng, ref_store) = main_path(
+        T, dev, gpu_line, dot_dir, args.profile)
     errs["paged_decode_attention_grouped"].append(ref["max_abs_err"])
-    g_launches, g_res = gpt2s_path(T, dev, gpu_line, args.profile)
+    g_launches, g_res = gpt2s_path(T, dev, gpu_line, dot_dir, args.profile)
     for name, r in g_res.items():
         errs[name].append(r["max_abs_err"])
     h_launches, h_res = host_path(T, dev, gpu_line, args.profile)
     for name, r in h_res.items():
         errs[name].append(r["max_abs_err"])
-    f_launches, f_res = flat_path(T, dev, gpu_line, args.profile)
+    f_launches, f_res = flat_path(T, dev, gpu_line, dot_dir, args.profile)
     for name, r in f_res.items():
         errs[name].append(r["max_abs_err"])
     o_launches, o_res, preemptions = overcommit_path(T, dev, gpu_line,
-                                                     args.profile)
+                                                     dot_dir, args.profile)
+    stream_path(T, gpu_line, ref_eng, ref_store)
+    for run, wall, label in PROFILE_PENDING:
+        profile_path(run, args.profile, wall, label)
+    PROFILE_PENDING.clear()
+    shutil.rmtree(dot_dir)
     errs["paged_decode_attention_grouped"].append(o_res["max_abs_err"])
     device_times()
 
@@ -2003,8 +2160,11 @@ def main() -> int:
         **{f"random_{k}_{n}": flat_rand[k][n] for k in flat_rand
            for n in ("ms", "device_ms", "plain_ms", "bound_ms")},
         engine_parity_launches=flat_engine))
-    entries.append(kernel_entry("int4_page_self_dot", probe_launches,
-                                errs["int4_page_self_dot"], probe_res))
+    entries.append(kernel_entry(
+        "int4_page_self_dot", probe_launches, errs["int4_page_self_dot"],
+        probe_res,
+        yardstick_device_ms=probe_res["yardstick"]["device_ms"],
+        yardstick_device_ev_ms=probe_res["yardstick"]["device_ev_ms"]))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

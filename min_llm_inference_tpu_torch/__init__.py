@@ -7,17 +7,18 @@ packing, per-page scales set at row 0) and imports nothing of it, nor JAX.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU they raise rather than run on the CPU.
 
-Ported so far: the AutonomousEngine full-grant path, with and without
-ring decode (the reference model of ``bench.py`` and its 12-layer gpt2s
-path), and the host-scheduled engines (PagedEngine with the Python page
-scheduler, NativePagedEngine with the C++ one built from csrc/scheduler.cpp
-at first use, DenseEngine), on five hand-written CUDA kernels: paged
-attention with the fused write and the ring partial
-(csrc/paged_attention_grouped.cu), one-slot paged decode attention over
-fragmented host tables (csrc/paged_attention.cu), the group-view ring
-partial (csrc/paged_attention_dgrid.cu), the ring flush
-(csrc/ring_flush.cu) and the int8 prefill quantize + scatter
-(csrc/prefill_scatter.cu).
+Ported so far: AutonomousEngine (full grant and overcommit, with and
+without ring decode: the reference model of ``bench.py``, its 12-layer
+gpt2s path, the flat and overcommit paths), whose burst runs on the card
+as one CUDA graph with the liveness gate and the prefill bucket as
+conditional nodes (runtime/graph.py, csrc/graph_cond.cu), and
+StreamingSession on it; the host-scheduled engines (PagedEngine with the
+Python page scheduler, NativePagedEngine with the C++ one built from
+csrc/scheduler.cpp at first use, DenseEngine); every Pallas kernel of the
+JAX package as a hand-written CUDA kernel under csrc/ (paged attention
+with the fused write and the ring partial, one-slot paged attention, the
+group-view and flat ring partials, the ring flush, the int8 prefill
+quantize + scatter, the int4 probe).
 """
 
 from .config import EngineConfig, ModelConfig, resolve_device

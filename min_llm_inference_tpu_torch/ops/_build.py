@@ -11,12 +11,18 @@ variants of ``csrc/ring_partial.cuh``, ``RING_PARTIAL_SPLIT``) into a
 library of its own. Nothing here runs at import time: the CPU tests import
 every module, and the CPU has no ``nvcc``.
 
+Each kernel wrapper counts its launches (``counted``, ``count_launch``):
+on the host when it launches eagerly, on the device when the launch is
+recorded into a CUDA graph (runtime/graph.py), so that every replay counts
+the launches it makes.
+
 No ``--use_fast_math``: the kernels' quantizers must round exactly as the
 plain versions do (IEEE ``1.0f / s``, ``rintf``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,12 +31,14 @@ import subprocess
 import tempfile
 import time
 
+import torch
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("paged_attention_grouped.cu", "paged_attention_dgrid.cu",
            "ring_flush.cu", "prefill_scatter.cu", "paged_attention.cu",
-           "paged_attention_flat.cu", "int4_probe.cu")
+           "paged_attention_flat.cu", "int4_probe.cu", "graph_cond.cu")
 # host C++ sources (no CUDA): built by the host compiler
 HOST_SOURCES = ("scheduler.cpp",)
 # dynamic shared memory a block may use on Hopper (227 KB)
@@ -168,3 +176,52 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.mli_error_string(rc).decode()
         raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
+
+
+# the kernel wrappers that count their launches, in registration order: a
+# captured graph counts on the device at these indices
+COUNTED = []
+MAX_COUNTED = 16
+_device_counts = None
+
+
+def counted(wrapper):
+    """Register a kernel wrapper: ``wrapper.launches`` counts its kernel
+    launches since the last reset."""
+    if len(COUNTED) == MAX_COUNTED:
+        raise RuntimeError("too many counted kernel wrappers")
+    wrapper.launches = 0
+    wrapper.count_index = len(COUNTED)
+    COUNTED.append(wrapper)
+    return wrapper
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel, where it launches it: on
+    the host, or, while a graph is captured under ``counting_on_device``,
+    on the device inside the graph (the launch is only recorded then, and
+    the count with it: both run at each replay that runs the launch)."""
+    if _device_counts is not None and torch.cuda.is_current_stream_capturing():
+        _device_counts[wrapper.count_index].add_(1)
+    else:
+        wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def counting_on_device(counts):
+    """Inside, launches recorded into a graph under capture count into the
+    device vector ``counts`` ([MAX_COUNTED], by ``count_index``); None
+    leaves counting on the host."""
+    global _device_counts
+    prev, _device_counts = _device_counts, counts
+    try:
+        yield
+    finally:
+        _device_counts = prev
+
+
+def add_device_counts(counts) -> None:
+    """Add launches counted on the device (a host sequence by
+    ``count_index``) to the wrappers' ``launches``."""
+    for wrapper in COUNTED:
+        wrapper.launches += int(counts[wrapper.count_index])

@@ -59,7 +59,7 @@ def paged_decode_attention(q, kv_pages, lengths, page_table, k_scales=None,
 
 
 # kernel launches since the last reset (launches made by the wrapper only)
-paged_decode_attention.launches = 0
+_build.counted(paged_decode_attention)
 
 
 def paged_decode_attention_plain(q, kv_pages, lengths, page_table,
@@ -134,5 +134,5 @@ def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, n_heads,
             _IN_DTYPES[q.dtype], inv_sqrt(D // n_heads), stream,
         )
     _build.check(lib, rc, "paged_decode_attention kernel")
-    paged_decode_attention.launches += 1
+    _build.count_launch(paged_decode_attention)
     return out

@@ -64,7 +64,7 @@ def dgrid_paged_partial(
 
 
 # kernel launches since the last reset (launches made by the wrapper only)
-dgrid_paged_partial.launches = 0
+_build.counted(dgrid_paged_partial)
 
 
 def dgrid_paged_partial_plain(q, kv_pages, k_scales, v_scales, ring_start,
@@ -147,5 +147,5 @@ def _launch(q, kv_pages, k_scales, v_scales, ring_start, lengths, page_table,
             inv_sqrt(D // n_heads), stream,
         )
     _build.check(lib, rc, "dgrid_paged_partial kernel")
-    dgrid_paged_partial.launches += 1
+    _build.count_launch(dgrid_paged_partial)
     return out, m, l

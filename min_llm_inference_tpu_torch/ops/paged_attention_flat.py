@@ -67,7 +67,7 @@ def paged_decode_attention_flat(
 
 
 # kernel launches since the last reset (launches made by the wrapper only)
-paged_decode_attention_flat.launches = 0
+_build.counted(paged_decode_attention_flat)
 
 
 def paged_decode_attention_flat_plain(q, kv_pages, lengths, page_table,
@@ -150,5 +150,5 @@ def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, ring_start,
             inv_sqrt(D // n_heads), stream,
         )
     _build.check(lib, rc, "paged_decode_attention_flat kernel")
-    paged_decode_attention_flat.launches += 1
+    _build.count_launch(paged_decode_attention_flat)
     return out, m, l

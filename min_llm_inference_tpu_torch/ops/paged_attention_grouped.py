@@ -70,7 +70,7 @@ def paged_decode_attention_grouped(
 
 
 # kernel launches since the last reset (launches made by the wrapper only)
-paged_decode_attention_grouped.launches = 0
+_build.counted(paged_decode_attention_grouped)
 
 
 def paged_decode_attention_grouped_plain(
@@ -190,7 +190,7 @@ def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, k_new,
             _IN_DTYPES[q.dtype], inv_sqrt(D // n_heads), stream,
         )
     _build.check(lib, rc, "paged_decode_attention_grouped kernel")
-    paged_decode_attention_grouped.launches += 1
+    _build.count_launch(paged_decode_attention_grouped)
     if ring:
         return out, m, l
     return (out, kv_pages) if fused else out

@@ -48,7 +48,7 @@ def prefill_quant_scatter(pool, k, v, pid, inv_k, inv_v):
 
 
 # kernel launches since the last reset (launches made by the wrapper only)
-prefill_quant_scatter.launches = 0
+_build.counted(prefill_quant_scatter)
 
 
 def prefill_quant_scatter_plain(pool, k, v, pid, inv_k, inv_v):
@@ -115,5 +115,5 @@ def _launch(pool, k, v, pid, inv_k, inv_v):
             _IN_DTYPES[k.dtype], 0 if vec16 else 1, stream,
         )
     _build.check(lib, rc, "prefill_quant_scatter kernel")
-    prefill_quant_scatter.launches += 1
+    _build.count_launch(prefill_quant_scatter)
     return pool

@@ -49,7 +49,7 @@ def ring_flush(kv_pages, ring, ring_start, lengths, page_table, *,
 
 
 # kernel launches since the last reset (launches made by the wrapper only)
-ring_flush.launches = 0
+_build.counted(ring_flush)
 
 
 def ring_flush_plain(kv_pages, ring, ring_start, lengths, page_table, *,
@@ -101,5 +101,5 @@ def _launch(kv_pages, ring, ring_start, lengths, page_table, n_rounds,
             B, R, W, P, NP, row_bytes, n_rounds, vec16, stream,
         )
     _build.check(lib, rc, "ring_flush kernel")
-    ring_flush.launches += 1
+    _build.count_launch(ring_flush)
     return kv_pages

@@ -30,18 +30,28 @@ from dgrid, the dense view, the flat kernel or the grouped kernel's mode
 full-grant admitted wave by prompt length before slots and groups are
 assigned.
 
-Host reads inside a burst (each one scalar): the whole-burst liveness gate
-(JAX: ``lax.cond``) and, per sub-burst, the admitted count that picks the
-prefill bucket (JAX: ``lax.switch``). Nothing else in a burst syncs (the
-ring, its flush, the sort and the overcommit scheduler included);
-``BurstStats.host_syncs`` counts every sync of a run.
+Nothing in a burst reads a device value to the host. The whole-burst
+liveness gate (JAX: ``lax.cond``) and the prefill bucket each sub-burst
+picks from its admitted count (JAX: ``lax.switch``) stay on the device
+(runtime/graph.py), and so do the counts of skipped bursts, rounds and
+prefill blocks, which ride the run's final output pull with the preemption
+count. On CUDA a burst is one CUDA graph, the gate and the bucket its IF
+nodes; a chunk replays it ``bursts_per_chunk`` times and reads the 5-int
+status once. ``BurstStats.host_syncs`` counts every sync of a run: the two
+input uploads, one status read per chunk and the final pull.
 
-Not ported yet (raise NotImplementedError): sampling and StreamingSession.
+StreamingSession serves on the same burst: submit, step, dispatch/observe,
+poll and close, with rows recycled mod capacity.
+
+Not ported yet (raises NotImplementedError): sampling.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
+import os
 from typing import List, NamedTuple
 
 import numpy as np
@@ -60,9 +70,19 @@ from ..models.paged import (
     ring_pad_rows,
 )
 from ..models.params import fuse_qkv_params
+from ..ops import _build
 from ..ops.indexing import index_set_drop_
 from ..ops.ring_flush import ring_flush
 from ..utils.profiling import phase
+from .graph import (
+    capture,
+    capture_stream,
+    count_dot_nodes,
+    device_if,
+    device_switch,
+    new_pools,
+    warming,
+)
 from .item_storage import ItemStorage, Request
 
 I32 = torch.int32
@@ -94,9 +114,12 @@ class AutoState(NamedTuple):
 class BurstStats:
     """What the engine did: bursts dispatched, bursts the liveness gate
     skipped, decode rounds executed, prefill blocks run (one per sub-burst
-    that admitted), host syncs (the host waiting on the device: scalar and
-    output reads, and the run's two input uploads) and, under overcommit,
-    preemptions (read with the final outputs)."""
+    that admitted; these three counted on the device and read with the
+    final outputs), host syncs (the host waiting on the device: the run's
+    two input uploads, status and output reads), under overcommit
+    preemptions (read with the final outputs), and on CUDA the graphs
+    captured (one per executed width at a queue shape's first run; a
+    capture makes no host sync)."""
 
     bursts: int = 0
     skipped: int = 0
@@ -104,6 +127,7 @@ class BurstStats:
     prefills: int = 0
     host_syncs: int = 0
     preemptions: int = 0
+    captures: int = 0
 
 
 def _check_supported(engine_cfg: EngineConfig, attention_impl: str) -> None:
@@ -190,7 +214,7 @@ class Admission(NamedTuple):
 
 def _full_grant_admission(engine_cfg: EngineConfig, max_new: int,
                           st: AutoState, prompts_all, plens_all,
-                          n_real: int) -> Admission:
+                          n_real) -> Admission:
     """Free the page groups of dead-but-allocated slots (group id = first
     page // W), then pop the queue head into dead slots, one group each."""
     dev = st.lengths.device
@@ -244,7 +268,7 @@ def _full_grant_admission(engine_cfg: EngineConfig, max_new: int,
 
 def _overcommit_admission(engine_cfg: EngineConfig, max_new: int, R: int,
                           st: AutoState, prompts_all, plens_all,
-                          n_real: int) -> Admission:
+                          n_real) -> Admission:
     """Paged scheduling with overcommit, on the device, in half-group
     units (W/2 contiguous pages): free dead slots' halves -> grow live
     slots that this sub-burst's R rounds take past their first half ->
@@ -393,17 +417,29 @@ def _new_rings(model_cfg: ModelConfig, engine_cfg: EngineConfig, dev,
     return rings, scs
 
 
+def _prefill_sizes(max_new: int) -> list:
+    """The prefill block sizes of a sub-burst admitting up to max_new."""
+    return [s for s in (64, 128, 256) if s < max_new] + [max_new]
+
+
+def _prefill_bucket(m, sizes) -> torch.Tensor:
+    """The device int that picks the prefill block for ``m`` admitted
+    requests: 0 for none, else 1 + the index of the smallest size that
+    holds them (JAX: ``sum(m > t)`` over the thresholds)."""
+    return sum((m > t).to(I32) for t in [0] + sizes[:-1])
+
+
 def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
                attention_impl: str, max_new: int, ctx, R: int,
-               round_offset: int, ring_ctx, do_flush: bool,
-               stats: BurstStats, params, st: AutoState, prompts_all,
-               plens_all, n_real: int):
+               round_offset: int, ring_ctx, do_flush: bool, params,
+               st: AutoState, prompts_all, plens_all, n_real, counts):
     """One admit -> prefill -> R decode rounds. ``ring_ctx`` (rings, scale
     columns, ring_start, ring_r0) is the burst-wide ring threaded across
     sub-bursts, or None (a fresh ring per sub-burst when ring decode is on);
     ``round_offset`` is the absolute round of this sub-burst's first round
-    and ``do_flush`` lands the ring in the pages at its end. Returns (state,
-    status, ring_ctx)."""
+    and ``do_flush`` lands the ring in the pages at its end. Pools, outputs
+    and ``counts`` are written in place. Returns (state, ring_ctx, host
+    syncs made)."""
     dev = st.lengths.device
     NP = engine_cfg.n_pages
     P = engine_cfg.page_size
@@ -421,19 +457,23 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
      page_stack, granted, plens, prompts, m, slot_ids, oc) = adm
 
     # ---- 3. prefill the admitted prompts over the smallest bucket of rows
-    # that holds them (the first m rows of the max_new block) ----
+    # that holds them (the first m rows of the max_new block), picked on
+    # the device (JAX: lax.switch) ----
     kv = st.kv
     heads = ctx.local_heads(model_cfg)
-    sizes = [s for s in (64, 128, 256) if s < max_new] + [max_new]
-    n_adm = int(m)
-    stats.host_syncs += 1
-    bs = next((s for s in sizes if n_adm <= s), None) if n_adm else None
-    if bs is not None:
-        write_kv_block, _ = make_prefill_kv_writer(
-            kv, granted[:bs], plens[:bs], S_pre, P, NP, n_heads=heads)
-        prefill_write_kv(params, model_cfg, prompts[:bs], plens[:bs],
-                         write_kv_block, ctx)
-        stats.prefills += 1
+    sizes = _prefill_sizes(max_new)
+
+    def prefill(bs):
+        def run():
+            write_kv_block, _ = make_prefill_kv_writer(
+                kv, granted[:bs], plens[:bs], S_pre, P, NP, n_heads=heads)
+            prefill_write_kv(params, model_cfg, prompts[:bs], plens[:bs],
+                             write_kv_block, ctx)
+        return run
+
+    syncs = device_switch(_prefill_bucket(m, sizes),
+                          [None] + [prefill(s) for s in sizes])
+    counts[_PREFILLS].add_((m > 0).to(I32))
 
     # ---- 4. decode rounds; the tokens scatter into the output buffers once
     # per sub-burst ----
@@ -482,7 +522,6 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
         fin_len.append(lengths + 1)
         last_tokens = torch.where(live, tok, last_tokens)
         lengths = new_lengths
-    stats.rounds += R
     if use_ring and do_flush:
         for pool, rg in zip(kv_pages, rings):
             if engine_cfg.kv_packed:
@@ -498,51 +537,85 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
                        st.final_lens, **oc)
     ring_ctx_out = (None if ring_ctx is None
                     else (rings, ring_scs, ring_start, ring_r0))
-    return new_st, _status_of(new_st), ring_ctx_out
+    return new_st, ring_ctx_out, syncs
+
+
+def _state_tensors(st: AutoState) -> list:
+    """Every tensor of a state, pools and scales first, in a fixed order."""
+    kv = st.kv
+    out = [t for t in (*kv.kv_pages, *kv.k_scales, *kv.v_scales)
+           if t is not None]
+    return out + [t for t in st[1:] if t is not None]
+
+
+def _store_(dst: AutoState, src: AutoState) -> None:
+    """Copy a burst's new state into the state's own buffers."""
+    for d, s in zip(_state_tensors(dst), _state_tensors(src)):
+        if d is not s:
+            d.copy_(s)
+
+
+def _reset_state_(st: AutoState, n_units: int) -> None:
+    """Bring a state's buffers back to init_auto_state's values."""
+    for t in _state_tensors(st):
+        t.zero_()
+    st.free_top.fill_(n_units)
+    torch.arange(n_units, dtype=I32, device=st.page_stack.device,
+                 out=st.page_stack)
 
 
 def _autonomous_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
-                      attention_impl: str, max_new: int, ctx,
-                      stats: BurstStats, params, st: AutoState, prompts_all,
-                      plens_all, n_real: int):
-    """One burst: ``subbursts`` repetitions of admit -> prefill -> decode
-    (n_forward_rounds / subbursts rounds each), so dead slots refill every
-    R/subbursts rounds while the host pays one status read per chunk. One
-    liveness gate covers the whole burst: with no live slot and nothing
-    queued the burst costs one scalar read and changes nothing.
+                      attention_impl: str, max_new: int, ctx, params,
+                      st: AutoState, prompts_all, plens_all, n_real, counts,
+                      status) -> int:
+    """One burst, in place on ``st``'s buffers: ``subbursts`` repetitions
+    of admit -> prefill -> decode (n_forward_rounds / subbursts rounds
+    each), so dead slots refill every R/subbursts rounds while the host
+    pays one status read per chunk. One liveness gate covers the whole
+    burst (JAX: ``lax.cond``): with no live slot and nothing queued the
+    burst changes no state tensor. ``n_real`` is the device count of real
+    requests; ``counts`` gets the skipped burst, the rounds and the prefill
+    blocks; ``status`` the 5-int status after the burst. Returns the host
+    syncs made (reads of the gate and the bucket on CUDA without capture;
+    none on the CPU or in a graph).
 
     With ring decode, ``burst_flush`` and ``subbursts > 1``, one ring sized
     for the whole burst rides across the sub-bursts and is flushed once at
     burst end; otherwise each sub-burst flushes its own ring."""
-    stats.bursts += 1
     pending = st.queue_head < n_real
     if engine_cfg.overcommit:
         pending = pending | (st.retry_top > 0)
-    go = bool(((st.lengths > 0).any() | pending).item())
-    stats.host_syncs += 1
-    if not go:
-        stats.skipped += 1
-        return st, _status_of(st)
-    n_sub = engine_cfg.subbursts
-    r_sub = engine_cfg.n_forward_rounds // n_sub
-    use_ring = engine_cfg.decode_ring and attention_impl == "grouped"
-    burst_ring = use_ring and engine_cfg.burst_flush and n_sub > 1
-    ring_ctx = None
-    if burst_ring:
-        rings, ring_scs = _new_rings(model_cfg, engine_cfg, st.lengths.device,
-                                     engine_cfg.n_forward_rounds)
-        # slots live at burst start: first new position = length - 1,
-        # first ring column 0; admissions overwrite their entries
-        ring_ctx = (rings, ring_scs, torch.clamp_min(st.lengths - 1, 0),
-                    torch.zeros_like(st.lengths))
-    status = None
-    for k in range(n_sub):
-        st, status, ring_ctx = _sub_burst(
-            model_cfg, engine_cfg, attention_impl, max_new, ctx, r_sub,
-            k * r_sub, ring_ctx, (not burst_ring) or k == n_sub - 1,
-            stats, params, st, prompts_all, plens_all, n_real,
-        )
-    return st, status
+    go = (st.lengths > 0).any() | pending
+    counts[_SKIPPED].add_((~go).to(I32))
+    inner = []
+
+    def run_subbursts():
+        n_sub = engine_cfg.subbursts
+        r_sub = engine_cfg.n_forward_rounds // n_sub
+        use_ring = engine_cfg.decode_ring and attention_impl == "grouped"
+        burst_ring = use_ring and engine_cfg.burst_flush and n_sub > 1
+        ring_ctx = None
+        if burst_ring:
+            rings, ring_scs = _new_rings(model_cfg, engine_cfg,
+                                         st.lengths.device,
+                                         engine_cfg.n_forward_rounds)
+            # slots live at burst start: first new position = length - 1,
+            # first ring column 0; admissions overwrite their entries
+            ring_ctx = (rings, ring_scs, torch.clamp_min(st.lengths - 1, 0),
+                        torch.zeros_like(st.lengths))
+        cur = st
+        for k in range(n_sub):
+            cur, ring_ctx, syncs = _sub_burst(
+                model_cfg, engine_cfg, attention_impl, max_new, ctx, r_sub,
+                k * r_sub, ring_ctx, (not burst_ring) or k == n_sub - 1,
+                params, cur, prompts_all, plens_all, n_real, counts)
+            inner.append(syncs)
+        counts[_ROUNDS].add_(engine_cfg.n_forward_rounds)
+        _store_(st, cur)
+
+    syncs = device_if(go, run_subbursts)
+    status.copy_(_status_of(st))
+    return syncs + sum(inner)
 
 
 def _compact_slice(st: AutoState, b_new: int) -> AutoState:
@@ -562,6 +635,123 @@ def _compact_slice(st: AutoState, b_new: int) -> AutoState:
     )
 
 
+# the per-slot fields of AutoState: an executed width has buffers of its own
+_SLOT_FIELDS = ("page_table", "lengths", "last_tokens", "rid", "allocated",
+                "grown", "adm_seq")
+# device counters of a program, before the kernel launch counts
+_SKIPPED, _ROUNDS, _PREFILLS = 0, 1, 2
+_N_STATS = 3
+
+
+class _Program:
+    """The burst over fixed buffers: the state at each executed width (the
+    per-slot fields are the width's own, the rest shared), the request
+    queue (prompts, prompt lengths, the device count ``n_real``), the
+    device counters the burst writes (skipped, rounds, prefills, then the
+    kernel launches recorded into a graph) and the status.
+
+    ``burst(b)`` runs one burst at width b: eagerly (the CPU; CUDA with
+    capture off), or on CUDA, once ``capture()`` has run, as the replay of
+    that width's graph: one host call, no read."""
+
+    def __init__(self, engine: "AutonomousEngine", cap: int, s_pre: int,
+                 widths):
+        # no reference to the engine: a cycle would leave the graphs to the
+        # cyclic collector, which may free one during another capture
+        self.device = dev = engine.device
+        ecfg = engine.engine_cfg
+        self.full = ecfg.n_slots
+        full = init_auto_state(engine.model_cfg, ecfg, cap, dev)
+        self.st = {ecfg.n_slots: full}
+        for b in widths[1:]:
+            self.st[b] = full._replace(**{
+                f: torch.zeros((b,) + getattr(full, f).shape[1:],
+                               dtype=getattr(full, f).dtype, device=dev)
+                for f in _SLOT_FIELDS if getattr(full, f) is not None})
+        self.n_units = full.page_stack.shape[0]
+        self.prompts = torch.zeros((cap, s_pre), dtype=I32, device=dev)
+        self.plens = torch.zeros(cap, dtype=I32, device=dev)
+        self.n_real = torch.zeros((), dtype=I32, device=dev)
+        self.counts = torch.zeros(_N_STATS + _build.MAX_COUNTED, dtype=I32,
+                                  device=dev)
+        self.status = torch.zeros(5, dtype=I32, device=dev)
+        # the burst at each width, over these buffers
+        self._bodies = {b: functools.partial(
+            _autonomous_burst, engine.model_cfg,
+            ecfg if b == ecfg.n_slots else dataclasses.replace(
+                ecfg, n_slots=b),
+            engine.attention_impl, min(engine.max_new, b), DEFAULT_CTX,
+            engine.params, st, self.prompts, self.plens, self.n_real,
+            self.counts, self.status) for b, st in self.st.items()}
+        self.graphs = {}
+
+    def burst(self, b: int) -> int:
+        """One burst at width b; returns the host syncs it made."""
+        if b in self.graphs:
+            self.graphs[b].replay()
+            return 0
+        return self._bodies[b]()
+
+    def capture(self, dot_dir: str | None = None) -> None:
+        """Capture every width's burst into a CUDA graph, after one eager
+        burst per width that runs every branch (graph.warming) on the
+        capture stream; then reset the state. The graphs share their memory
+        pools (they never replay concurrently). With ``dot_dir``, each
+        graph is also written there as ``burst-<width>.dot``."""
+        dev = self.device
+        stream = capture_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream), warming():
+            for body in self._bodies.values():
+                body()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self.reset()
+        pools = new_pools()
+        info = {}
+        for b in self.st:
+            dot = os.path.join(dot_dir, f"burst-{b}.dot") if dot_dir else None
+            g = capture(self._bodies[b], dev, pools, self.counts[_N_STATS:],
+                        dot)
+            self.graphs[b] = g
+            info[b] = dict(capture_s=g.capture_s,
+                           instantiate_s=g.instantiate_s,
+                           pool_bytes=g.pool_bytes,
+                           nodes=count_dot_nodes(dot) if dot else None)
+        self.graph_info = info
+
+    def reset(self) -> None:
+        """The initial state and zero counters (every width's per-slot
+        buffers are written by the compaction before that width runs)."""
+        _reset_state_(self.st[self.full], self.n_units)
+        self.counts.zero_()
+
+    def compact(self, b_from: int, b_to: int) -> None:
+        """Drain downshift: the live slots of width b_from into width
+        b_to's buffers (eager, between chunks)."""
+        src = _compact_slice(self.st[b_from], b_to)
+        dst = self.st[b_to]
+        for f in _SLOT_FIELDS:
+            if getattr(dst, f) is not None:
+                getattr(dst, f).copy_(getattr(src, f))
+
+    def count_vector(self) -> torch.Tensor:
+        """The device counters and, last, the preemptions so far."""
+        st = self.st[self.full]
+        pre = (torch.zeros_like(self.n_real) if st.preempted is None
+               else st.preempted)
+        return torch.cat([self.counts, pre.view(1)])
+
+
+def _fold_counts(stats: "BurstStats", counts: np.ndarray) -> None:
+    """Add a pulled count_vector() to ``stats`` (preemptions too) and the
+    launches recorded into graphs to the kernel wrappers."""
+    stats.skipped += int(counts[_SKIPPED])
+    stats.rounds += int(counts[_ROUNDS])
+    stats.prefills += int(counts[_PREFILLS])
+    stats.preemptions += int(counts[-1])
+    _build.add_device_counts(counts[_N_STATS:-1])
+
+
 class AutonomousEngine:
     """Continuous-batching engine with the scheduler on the device.
 
@@ -571,6 +761,14 @@ class AutonomousEngine:
     the gather oracle, no ring). ``device``: ``cuda`` unless the caller
     names another; raises without a GPU. ``params`` are tensors on that
     device (models.params_from_numpy).
+
+    On CUDA a burst is one CUDA graph per executed width, captured at the
+    first run of a queue shape (request capacity, prompt bucket) and
+    replayed by later runs of that shape; ``graph_info`` holds what the
+    latest capture cost, by width. ``_capture=False`` keeps the eager CUDA
+    path, which reads the gate and the bucket on the host: a check path for
+    tests, never a fallback. ``_graph_dot_dir``: write each captured graph
+    there (Graphviz) and count its nodes into ``graph_info``.
     """
 
     def __init__(
@@ -585,6 +783,8 @@ class AutonomousEngine:
         min_drain_slots: int | None = None,
         temperature: float = 0.0,
         device=None,
+        _capture: bool = True,
+        _graph_dot_dir: str | None = None,
     ):
         model_cfg.validate()
         engine_cfg.validate(model_cfg)
@@ -605,23 +805,30 @@ class AutonomousEngine:
         # drain downshift floor; n_slots = disabled
         self.min_drain_slots = (max(8, min_drain_slots) if min_drain_slots
                                 else engine_cfg.n_slots)
+        self.use_graphs = self.device.type == "cuda" and _capture
+        self.graph_dot_dir = _graph_dot_dir
+        self.graph_info = {}
         self.stats = BurstStats()
+        self._run_key = self._run_program = None
 
-    def _burst_for(self, b_exec: int):
-        """The burst over the first b_exec slots (drain downshift: once the
-        queue is empty and liveness has fallen, projections, logits and the
-        kernel grid run over b_exec rows)."""
-        cfg = (self.engine_cfg if b_exec == self.engine_cfg.n_slots
-               else dataclasses.replace(self.engine_cfg, n_slots=b_exec))
-        max_new = min(self.max_new, b_exec)
+    def _widths(self) -> list:
+        """The executed widths, widest first: n_slots, halved down to the
+        drain floor."""
+        widths = [self.engine_cfg.n_slots]
+        while widths[-1] // 2 >= self.min_drain_slots:
+            widths.append(widths[-1] // 2)
+        return widths
 
-        def burst(st, prompts_all, plens_all, n_real):
-            return _autonomous_burst(
-                self.model_cfg, cfg, self.attention_impl, max_new,
-                DEFAULT_CTX, self.stats, self.params, st, prompts_all,
-                plens_all, n_real)
-
-        return burst
+    def _program(self, cap: int, s_pre: int, widths) -> _Program:
+        """A new program over a queue of ``cap`` prompts of ``s_pre``
+        tokens, captured on CUDA (the capture's seconds and memory go to
+        ``graph_info``)."""
+        prog = _Program(self, cap, s_pre, widths)
+        if self.use_graphs:
+            prog.capture(self.graph_dot_dir)
+            self.graph_info = prog.graph_info
+            self.stats.captures += len(widths)
+        return prog
 
     def run(self, item_storage: ItemStorage) -> None:
         counter = get_global_throughput_counter()
@@ -644,23 +851,30 @@ class AutonomousEngine:
             prompts_all[i, : len(req.tokens)] = req.tokens
             plens_all[i] = len(req.tokens)
 
-        st = init_auto_state(self.model_cfg, self.engine_cfg, cap,
-                             self.device)
-        prompts_dev = torch.from_numpy(prompts_all).to(self.device)
-        plens_dev = torch.from_numpy(plens_all).to(self.device)
+        # one program (its buffers and graphs) per queue shape, the last
+        # one kept
+        if self._run_key != (cap, s_pre):
+            self._run_program = None
+            self._run_program = self._program(cap, s_pre, self._widths())
+            self._run_key = (cap, s_pre)
+        prog = self._run_program
+        prog.reset()
+        prog.prompts.copy_(torch.from_numpy(prompts_all))
+        prog.plens.copy_(torch.from_numpy(plens_all))
         self.stats.host_syncs += 2  # blocking uploads (pageable memory)
+        prog.n_real.fill_(n)
 
         counter.start_record()
         done = False
         prev_status = None
         b_exec = self.engine_cfg.n_slots
         while not done:
-            burst = self._burst_for(b_exec)
             with phase("burst_dispatch"):
                 for _ in range(self.chunk):
-                    st, status = burst(st, prompts_dev, plens_dev, n)
+                    self.stats.host_syncs += prog.burst(b_exec)
+            self.stats.bursts += self.chunk
             with phase("status_fetch"):
-                live, head, free, retry, _fin = status.tolist()
+                live, head, free, retry, _fin = prog.status.tolist()
                 self.stats.host_syncs += 1
             pending = head < n or retry > 0
             done = live == 0 and not pending
@@ -670,8 +884,8 @@ class AutonomousEngine:
                 # still holds them
                 while (b_exec // 2 >= self.min_drain_slots
                        and live <= b_exec // 2):
+                    prog.compact(b_exec, b_exec // 2)
                     b_exec //= 2
-                    st = _compact_slice(st, b_exec)
             # a stall needs TWO consecutive no-progress chunks: pages are
             # freed at the start of the NEXT burst
             if live == 0 and pending:
@@ -682,18 +896,19 @@ class AutonomousEngine:
             else:
                 prev_status = None
         with phase("drain_fetch"):
-            packed = torch.cat([st.out_tokens, st.final_lens[:, None]], dim=1)
-            if st.preempted is not None:
-                # the preemption count rides in one more row of the pull
-                extra = torch.cat([st.preempted.view(1, 1),
-                                   torch.zeros_like(packed[:1, 1:])], dim=1)
-                packed = torch.cat([packed, extra])
-            packed = packed.cpu().numpy()
+            # one pull: the outputs, then rows of the device counters
+            st = prog.st[self.engine_cfg.n_slots]
+            counts = prog.count_vector()
+            n_counts, width = counts.numel(), S + 1
+            rows = -(-n_counts // width)
+            counts = torch.cat([counts,
+                                counts.new_zeros(rows * width - n_counts)])
+            packed = torch.cat([
+                torch.cat([st.out_tokens, st.final_lens[:, None]], dim=1),
+                counts.view(rows, width)]).cpu().numpy()
             self.stats.host_syncs += 1
-            if st.preempted is not None:
-                self.stats.preemptions += int(packed[-1, 0])
-                packed = packed[:-1]
-            out_tokens, final_lens = packed[:, :-1], packed[:, -1]
+            out_tokens, final_lens = packed[:cap, :-1], packed[:cap, -1]
+            _fold_counts(self.stats, packed[cap:].reshape(-1)[:n_counts])
         total = 0
         for i, req in enumerate(requests):
             fl = int(final_lens[i])
@@ -709,8 +924,246 @@ class AutonomousEngine:
 
 
 class StreamingSession:
-    """The streaming front end of AutonomousEngine (submit / step / poll /
-    close). Not ported yet: it waits for a later slice of the port."""
+    """Online serving on AutonomousEngine: submit requests at any time,
+    step the engine, poll for completions (counterpart of the JAX
+    package's StreamingSession). The prompt queue is a device ring buffer
+    of ``capacity`` rows: a submission uploads its rows and bumps the
+    device request count the burst reads.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("StreamingSession is not ported yet")
+    ``capacity`` bounds the requests in flight (submitted and not yet
+    collected by ``poll``), not the session's lifetime: a row is reused
+    once its occupant has been collected, in submission order.
+    ``free_capacity`` says how many submissions are accepted now; ``submit``
+    raises beyond it (backpressure: the caller sheds or buffers upstream).
+
+    Greedy decode makes a request's tokens depend only on its prompt and
+    the weights, never on when it was submitted or which slot it took: the
+    outputs equal the one-shot engine's token for token.
+
+    On CUDA the burst is the engine's graph over the session's own buffers
+    (captured when the session is made); ``dispatch`` replays it and starts
+    the copy of the status and ``final_lens`` into pinned host memory,
+    which ``observe`` waits for ``observe_lag`` bursts later.
+
+        sess = StreamingSession(engine, capacity=4096, max_prompt_len=64)
+        sess.submit([Request(0, [1, 2, 3])])
+        sess.step()                  # one chunk of bursts
+        for req in sess.poll():      # newly finished, tokens filled in
+            ...
+        sess.close()                 # drain everything still in flight
+    """
+
+    def __init__(self, engine: AutonomousEngine, capacity: int,
+                 max_prompt_len: int, observe_lag: int = 2):
+        S = engine.model_cfg.n_seq
+        if not 0 < max_prompt_len < S:
+            raise ValueError(f"max_prompt_len {max_prompt_len} not in "
+                             f"[1, {S - 1}]")
+        self.engine = engine
+        self.capacity = capacity
+        # pipelined observation (dispatch/observe): completions become
+        # visible observe_lag bursts after they happen
+        self.observe_lag = max(1, observe_lag)
+        # s_pre is the padded buffer width (a power of two, may exceed
+        # max_prompt_len); submit() enforces max_prompt_len itself
+        self.max_prompt_len = max_prompt_len
+        self.s_pre = min(S, 1 << (max_prompt_len - 1).bit_length())
+        self._width = engine.engine_cfg.n_slots
+        self._prog = engine._program(capacity, self.s_pre, [self._width])
+        self.st = self._prog.st[self._width]
+        self.stats = BurstStats()
+        self._cuda = engine.device.type == "cuda"
+        self._pending = collections.deque()
+        # pinned staging of uploads still in flight, with their events
+        self._staged = []
+        self.n_submitted = 0
+        self._requests: List[Request] = []
+        self._plens: List[int] = []
+        self._collected: set = set()
+        # every request with global id < _frontier is collected; rows
+        # [_frontier % cap, n_submitted % cap) are live and not reusable
+        self._frontier = 0
+
+    @property
+    def free_capacity(self) -> int:
+        """How many requests submit() accepts now (rows whose previous
+        occupant has been collected)."""
+        return self.capacity - (self.n_submitted - self._frontier)
+
+    def _upload_run(self, rows, lens, row0: int) -> None:
+        """One contiguous run of prompt rows and lengths into the queue, and
+        their final_lens reset (a recycled row must not look finished).
+        On CUDA the rows go from pinned staging without a host wait."""
+        k = rows.shape[0]
+        rows_t, lens_t = torch.from_numpy(rows), torch.from_numpy(lens)
+        if self._cuda:
+            rows_t, lens_t = rows_t.pin_memory(), lens_t.pin_memory()
+        self._prog.prompts[row0:row0 + k].copy_(rows_t, non_blocking=True)
+        self._prog.plens[row0:row0 + k].copy_(lens_t, non_blocking=True)
+        self.st.final_lens[row0:row0 + k].zero_()
+        if self._cuda:
+            done = torch.cuda.Event()
+            done.record()
+            self._staged.append((done, rows_t, lens_t))
+
+    def submit(self, requests: List[Request]) -> None:
+        """Enqueue requests. Raises ValueError beyond free_capacity (the
+        backpressure contract) or for a prompt longer than
+        max_prompt_len."""
+        if not requests:
+            return
+        k = len(requests)
+        if k > self.free_capacity:
+            raise ValueError(
+                f"backpressure: {k} submissions > free_capacity="
+                f"{self.free_capacity} (capacity {self.capacity}, "
+                f"{self.n_submitted - self._frontier} in flight or "
+                "uncollected); poll() to collect completions or shed load "
+                "upstream")
+        rows = np.zeros((k, self.s_pre), np.int32)
+        lens = np.zeros((k,), np.int32)
+        for i, req in enumerate(requests):
+            if not 0 < len(req.tokens) <= self.max_prompt_len:
+                raise ValueError(f"prompt length {len(req.tokens)} not in "
+                                 f"[1, max_prompt_len="
+                                 f"{self.max_prompt_len}]")
+            rows[i, : len(req.tokens)] = req.tokens
+            lens[i] = len(req.tokens)
+        self._staged = [s for s in self._staged if not s[0].query()]
+        row0 = self.n_submitted % self.capacity
+        first = min(k, self.capacity - row0)   # split a wrap-around
+        self._upload_run(rows[:first], lens[:first], row0)
+        if first < k:
+            self._upload_run(rows[first:], lens[first:], 0)
+        self.n_submitted += k
+        self._prog.n_real.fill_(self.n_submitted)
+        self._requests.extend(requests)
+        self._plens.extend(int(x) for x in lens)
+
+    def _burst(self) -> None:
+        self.stats.host_syncs += self._prog.burst(self._width)
+        self.stats.bursts += 1
+
+    def _status_dict(self, snap: np.ndarray, n_submitted_at: int) -> dict:
+        live, head, free, retry, fin = (int(x) for x in snap[:5])
+        return {"live": live, "queued": self.n_submitted - head + retry,
+                "free_groups": free, "finished_total": fin,
+                "fin_lens": snap[5:], "n_submitted_at": n_submitted_at}
+
+    def step(self, n_bursts: int | None = None,
+             observe: bool = False) -> dict:
+        """Run one chunk of bursts (default: the engine's
+        bursts_per_chunk) and read the status: {live, queued, free_groups,
+        finished_total}. ``observe=True`` brings the final_lens snapshot in
+        the same read (``fin_lens`` and ``n_submitted_at``, both for
+        poll())."""
+        for _ in range(n_bursts or self.engine.chunk):
+            self._burst()
+        snap = (torch.cat([self._prog.status, self.st.final_lens]) if observe
+                else self._prog.status).cpu().numpy()
+        self.stats.host_syncs += 1
+        out = self._status_dict(snap, self.n_submitted)
+        if not observe:
+            del out["fin_lens"], out["n_submitted_at"]
+        return out
+
+    def dispatch(self) -> None:
+        """Pipelined serving: one burst, and the copy of its status and
+        final_lens to the host started without waiting (on CUDA, into
+        pinned memory behind an event); observe() reads it later.
+        n_submitted rides along: a row recycled after this snapshot may
+        still show its previous occupant's final length in it, so polls
+        against it ignore later submissions."""
+        self._burst()
+        snap = torch.cat([self._prog.status, self.st.final_lens])
+        if self._cuda:
+            host = torch.empty(snap.shape, dtype=snap.dtype, pin_memory=True)
+            host.copy_(snap, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        else:
+            host, done = snap, None
+        self._pending.append((host, done, self.n_submitted))
+
+    def observe(self, block: bool = False) -> dict | None:
+        """The oldest in-flight burst's status, once it is at least
+        observe_lag bursts old (or at once with ``block``): the step() dict
+        plus ``fin_lens`` (that burst's final_lens snapshot) and
+        ``n_submitted_at``; None if there is none yet."""
+        if not self._pending or (
+                len(self._pending) <= self.observe_lag and not block):
+            return None
+        host, done, n_sub = self._pending.popleft()
+        if done is not None:
+            done.synchronize()
+            self.stats.host_syncs += 1
+        return self._status_dict(host.numpy(), n_sub)
+
+    def poll(self, fin_lens: np.ndarray | None = None,
+             n_submitted_at: int | None = None) -> List[Request]:
+        """Finished requests (tokens appended), each returned once.
+        ``fin_lens``: an observe() or step(observe=True) snapshot to use
+        instead of reading the latest final_lens (completions only grow,
+        and a finished row holds its tokens until it is recycled, so the
+        latest out_tokens rows of snapshot-finished requests are exact)."""
+        if fin_lens is None:
+            fl = self.st.final_lens.cpu().numpy()
+            self.stats.host_syncs += 1
+            hi = self.n_submitted
+        else:
+            fl = fin_lens
+            hi = min(self.n_submitted, self.n_submitted
+                     if n_submitted_at is None else n_submitted_at)
+        new = [g for g in range(self._frontier, hi)
+               if g not in self._collected and fl[g % self.capacity] > 0]
+        if not new:
+            return []
+        idx = torch.tensor([g % self.capacity for g in new],
+                           device=self.st.out_tokens.device)
+        rows = self.st.out_tokens.index_select(0, idx).cpu().numpy()
+        self.stats.host_syncs += 2
+        out = []
+        for j, g in enumerate(new):
+            req = self._requests[g]
+            row_fl = int(fl[g % self.capacity])
+            req.tokens.extend(rows[j, self._plens[g]: row_fl].tolist())
+            self._collected.add(g)
+            out.append(req)
+        while self._frontier in self._collected:
+            self._collected.discard(self._frontier)
+            self._frontier += 1
+        return out
+
+    def close(self) -> List[Request]:
+        """Run until every submitted request finishes; returns the
+        remaining completions (as poll). Raises if the pool can never admit
+        what is queued (two chunks in a row without progress). The
+        session's device counters then go to ``stats`` and the kernel
+        wrappers' launch counts."""
+        prev = None
+        out = []
+        # what the pipelined path already has in flight, then fresh steps
+        while self._pending:
+            s = self.observe(block=True)
+            out.extend(self.poll(s["fin_lens"], s["n_submitted_at"]))
+        while True:
+            s = self.step()
+            out.extend(self.poll())
+            if s["live"] == 0 and s["queued"] == 0:
+                break
+            if s["live"] == 0 and s["queued"] > 0:
+                key = (s["queued"], s["free_groups"])
+                if key == prev:
+                    raise RuntimeError("streaming session stalled: "
+                                       "pool exhausted")
+                prev = key
+            else:
+                prev = None
+        out.extend(self.poll())
+        # the session's device counters so far (the preemptions in full)
+        counts = self._prog.count_vector().cpu().numpy()
+        self._prog.counts.zero_()
+        self.stats.host_syncs += 1
+        self.stats.preemptions = 0
+        _fold_counts(self.stats, counts)
+        return out

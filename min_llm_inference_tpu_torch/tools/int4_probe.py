@@ -62,7 +62,7 @@ def int4_page_self_dot(x):
 
 
 # kernel launches since the last reset (launches made by the wrapper only)
-int4_page_self_dot.launches = 0
+_build.counted(int4_page_self_dot)
 
 
 def int4_page_self_dot_plain(x):
@@ -102,7 +102,7 @@ def _launch(x):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mli_int4_probe(x.data_ptr(), out.data_ptr(), P, Dk, stream)
     _build.check(lib, rc, "int4 probe kernel")
-    int4_page_self_dot.launches += 1
+    _build.count_launch(int4_page_self_dot)
     return out
 
 

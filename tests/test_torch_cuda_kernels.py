@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+burst captured as a CUDA graph against the eager burst, on the card.
 
 Every test here is marked ``cuda`` and skips without a GPU. The file
 imports neither JAX nor the JAX package, so it runs on a machine that has
@@ -38,6 +39,13 @@ from min_llm_inference_tpu_torch.ops.ring_flush import (
     ring_flush_plain,
 )
 from min_llm_inference_tpu_torch.tools import int4_probe
+import min_llm_inference_tpu_torch as T
+from min_llm_inference_tpu_torch.runtime import autonomous as tauto
+
+# the wrappers whose launches the burst tests count
+KERNELS = {"grouped": paged_decode_attention_grouped,
+           "dgrid": dgrid_paged_partial, "flat": paged_decode_attention_flat,
+           "prefill": prefill_quant_scatter}
 
 
 @pytest.fixture
@@ -722,3 +730,223 @@ def test_int4_probe_matches_plain(cuda):
     assert int4_probe.int4_page_self_dot.launches == before + 1
     assert torch.equal(got, int4_probe.int4_page_self_dot_plain(x))
     assert int4_probe.probe(cuda, strict=True)
+
+
+# ------------------------------------------------- the burst as a CUDA graph
+#
+# AutonomousEngine on the card captures a burst into a graph (the liveness
+# gate and the prefill bucket as IF nodes); `_capture=False` keeps the eager
+# path, which reads both on the host. The two run the same kernels on the
+# same inputs and must leave the same bytes.
+
+
+def graph_model(kind):
+    """A small model of the reference path's shape (one bare head) or of
+    the gpt2s path's (two pre-LN layers, four heads, FFN, output
+    projection), with numpy weights."""
+    if kind == "gpt2s":
+        model = T.ModelConfig(n_vocab=256, emb_dim=64, n_seq=64, n_layers=2,
+                              n_heads=4, ffn_dim=128, use_output_proj=True,
+                              use_layernorm=True, eof_token_id=255)
+    else:
+        model = T.ModelConfig(n_vocab=256, emb_dim=64, n_seq=64,
+                              eof_token_id=255)
+    rng = np.random.default_rng(5)
+    D, F = model.emb_dim, model.ffn_dim
+
+    def u(*shape):
+        return (rng.uniform(-1, 1, shape) * 0.02).astype(np.float32)
+
+    wte = u(model.n_vocab, D)
+    wte[model.eof_token_id] += 0.05
+    layers = []
+    for _ in range(model.n_layers):
+        layer = {k: u(D, D) for k in ("wq", "wk", "wv")}
+        if model.use_output_proj:
+            layer["wo"] = u(D, D)
+        if F:
+            layer.update(w_up=u(D, F), w_down=u(F, D))
+        if model.use_layernorm:
+            layer.update(ln1_g=np.ones(D, np.float32),
+                         ln2_g=np.ones(D, np.float32))
+        layers.append(layer)
+    return model, {"wte": wte, "wpe": u(model.n_seq, D), "layers": layers}
+
+
+GRAPH_CASES = {
+    "ref": ("ref", dict(kv_dtype="int4", decode_ring=False, subbursts=2)),
+    "gpt2s": ("gpt2s", dict(kv_dtype="int8", decode_ring=True,
+                            attn_dgrid=True, sort_admits=True)),
+    "flat": ("ref", dict(kv_dtype="int4", decode_ring=True, attn_flat=True,
+                         subbursts=2)),
+    "overcommit": ("ref", dict(kv_dtype="int8", decode_ring=False,
+                               overcommit=True, n_pages=24)),
+}
+
+
+def graph_engines(dev, case, **kw):
+    kind, extra = GRAPH_CASES[case]
+    model, tree = graph_model(kind)
+    params = T.params_from_numpy(tree, model, dev)
+    cfg = T.EngineConfig(**{**dict(n_slots=16, page_size=16, n_pages=64,
+                                   n_forward_rounds=4), **extra})
+    return [T.AutonomousEngine(params, model, cfg, device=dev,
+                               max_new_per_burst=8, _capture=c, **kw)
+            for c in (True, False)]
+
+
+def graph_prompts(seed, n, plen=24):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 255, int(rng.integers(1, plen))).tolist()
+            for _ in range(n)]
+
+
+def load_queue(prog, prompts):
+    for i, p in enumerate(prompts):
+        prog.prompts[i, :len(p)] = torch.tensor(p)
+        prog.plens[i] = len(p)
+    prog.n_real.fill_(len(prompts))
+
+
+def assert_same_state(a, b, what):
+    for i, (x, y) in enumerate(zip(tauto._state_tensors(a),
+                                   tauto._state_tensors(b))):
+        assert torch.equal(x, y), f"{what}: state tensor {i} differs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graph_burst_equals_eager(cuda, case):
+    """Burst by burst, one graph replay leaves every state byte (pools,
+    scales, tables, queue, outputs) and the status as one eager CUDA burst
+    does; then whole runs, the drain downshift's narrower graph included,
+    give the same tokens, and the graph's launches are counted on the
+    device."""
+    graph_eng, eager_eng = graph_engines(cuda, case, min_drain_slots=8)
+    prompts = graph_prompts(11, 40)
+    progs = []
+    for eng in (graph_eng, eager_eng):
+        prog = eng._program(len(prompts), 32, eng._widths())
+        prog.reset()
+        load_queue(prog, prompts)
+        progs.append(prog)
+    assert set(progs[0].graphs) == {16, 8} and not progs[1].graphs
+    B = graph_eng.engine_cfg.n_slots
+    for k in range(60):
+        assert progs[0].burst(B) == 0
+        assert progs[1].burst(B) > 0            # eager: host reads
+        assert_same_state(progs[0].st[B], progs[1].st[B], f"burst {k}")
+        assert torch.equal(progs[0].status, progs[1].status)
+        if progs[0].status[0] == 0 and progs[0].status[1] == len(prompts):
+            break
+    else:
+        raise AssertionError("the queue never drained")
+    tokens = []
+    for eng in (graph_eng, eager_eng):
+        # the first run captures (after an eager warm-up burst per width,
+        # whose launches count on the host); the second replays
+        for _ in range(2):
+            store = T.ItemStorage()
+            for i, p in enumerate(prompts):
+                store.add_new_item(T.Request(i, list(p)))
+            counted = {n: f.launches for n, f in KERNELS.items()}
+            eng.stats = T.BurstStats()
+            eng.run(store)
+        tokens.append([store.finished[i].tokens for i in range(len(prompts))])
+        st = eng.stats
+        L = eng.model_cfg.n_layers
+        attn = ("dgrid" if eng.engine_cfg.attn_dgrid else "flat"
+                if eng.engine_cfg.attn_flat else "grouped")
+        assert KERNELS[attn].launches - counted[attn] == st.rounds * L > 0
+    assert tokens[0] == tokens[1]
+    st = graph_eng.stats
+    assert st.host_syncs == 2 + -(-st.bursts // graph_eng.chunk) + 1
+    assert st.captures == 0
+
+
+@pytest.mark.cuda
+def test_graph_takes_every_prefill_bucket(cuda, monkeypatch):
+    """Waves of 30, 100, 200 and 400 requests into 512 free slots admit
+    into the prefill blocks of 64, 128, 256 and 512 rows (the eager path's
+    bucket reads say so); the graph, whose IF nodes pick the block on the
+    device, leaves the same bytes and tokens."""
+    model, tree = graph_model("ref")
+    params = T.params_from_numpy(tree, model, cuda)
+    cfg = T.EngineConfig(n_slots=512, page_size=16, n_pages=2048,
+                         n_forward_rounds=4, kv_dtype="int8",
+                         decode_ring=False)
+    seen = []
+    real = tauto.device_switch
+
+    def spy(index, branches):
+        if not torch.cuda.is_current_stream_capturing():
+            seen.append(int(index))
+        return real(index, branches)
+
+    monkeypatch.setattr(tauto, "device_switch", spy)
+    prompts = graph_prompts(12, 730, plen=32)
+    out, sessions = [], []
+    for capture in (True, False):
+        eng = T.AutonomousEngine(params, model, cfg, device=cuda,
+                                 max_new_per_burst=512, _capture=capture)
+        sess = T.StreamingSession(eng, capacity=1024, max_prompt_len=32)
+        seen.clear()
+        done, lo = {}, 0
+        counted = KERNELS["prefill"].launches
+        for wave in (30, 100, 200, 400):
+            sess.submit([T.Request(i, list(prompts[i]))
+                         for i in range(lo, lo + wave)])
+            lo += wave
+            done.update((r.id, r.tokens) for r in sess.close())
+        assert len(done) == len(prompts)
+        assert (KERNELS["prefill"].launches - counted
+                == sess.stats.prefills * model.n_layers > 0)
+        out.append(done)
+        sessions.append(sess)
+    assert {1, 2, 3, 4} <= set(seen)
+    assert out[0] == out[1]
+    assert_same_state(sessions[0].st, sessions[1].st, "after the waves")
+
+
+@pytest.mark.cuda
+def test_graph_gate_false_changes_nothing(cuda):
+    """With nothing live or queued the replay's gate is false: every state
+    byte stays, only the skip counter moves."""
+    graph_eng, _ = graph_engines(cuda, "gpt2s")
+    prompts = graph_prompts(13, 20)
+    prog = graph_eng._program(len(prompts), 32, graph_eng._widths())
+    prog.reset()
+    load_queue(prog, prompts)
+    B = graph_eng.engine_cfg.n_slots
+    for _ in range(60):
+        prog.burst(B)
+        live, head, _, _, _ = prog.status.tolist()
+        if live == 0 and head == len(prompts):
+            break
+    before = [t.clone() for t in tauto._state_tensors(prog.st[B])]
+    skipped = int(prog.counts[tauto._SKIPPED])
+    prog.burst(B)
+    for x, y in zip(tauto._state_tensors(prog.st[B]), before):
+        assert torch.equal(x, y)
+    assert int(prog.counts[tauto._SKIPPED]) == skipped + 1
+
+
+@pytest.mark.cuda
+def test_graph_second_run_replays(cuda):
+    """A second run of one queue shape replays the first run's graphs
+    (no capture) and gives the same tokens."""
+    graph_eng, _ = graph_engines(cuda, "flat")
+    prompts = graph_prompts(14, 30)
+    outs = []
+    for _ in range(2):
+        store = T.ItemStorage()
+        for i, p in enumerate(prompts):
+            store.add_new_item(T.Request(i, list(p)))
+        graph_eng.run(store)
+        outs.append([store.finished[i].tokens for i in range(len(prompts))])
+        if len(outs) == 1:
+            graphs = dict(graph_eng._run_program.graphs)
+            captures = graph_eng.stats.captures
+    assert outs[0] == outs[1]
+    assert graph_eng.stats.captures == captures == len(graphs)
+    assert graph_eng._run_program.graphs == graphs

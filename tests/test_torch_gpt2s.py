@@ -76,11 +76,11 @@ def test_gpt2s_engine_matches_jax_engine(params, change):
     generated = sum(len(ts.finished[i].tokens) - len(p)
                     for i, p in enumerate(prompts))
     assert generated > len(prompts)
-    # the ring adds no host sync: one gate read per burst, one bucket read
-    # per executed sub-burst, one status read per chunk, one output read,
-    # two input uploads
+    # the ring adds no host sync and nothing is read inside a burst: two
+    # input uploads, one status read per chunk, one output read; skipped
+    # bursts, rounds and prefill blocks are counted on the device
     st = eng.stats
     executed = st.bursts - st.skipped
-    assert st.host_syncs == (st.bursts + executed * cfg.subbursts
-                             + -(-st.bursts // eng.chunk) + 1 + 2)
+    assert st.host_syncs == 2 + -(-st.bursts // eng.chunk) + 1
+    assert st.rounds == executed * cfg.n_forward_rounds
     assert 0 < st.prefills <= executed * cfg.subbursts
