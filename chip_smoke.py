@@ -33,7 +33,14 @@ Phases, one line each; any failure raises and exits non-zero:
      pool; and copies against in-block arithmetic (``[split]``): the
      device time of the one-slot kernel and of the fused write at one head
      of 2048 features beside builds of the same source that only copy
-     (RING_PARTIAL_SPLIT=1) or only compute (=2), in turns;
+     (RING_PARTIAL_SPLIT=1) or only compute (=2), in turns; the sampling
+     kernel ([sample]) on float32 logits of the reference path's width
+     ([1024, 1024]) and of GPT-2's vocabulary ([1024, 50257]) with a
+     quarter of the rows dead, at temperatures 0.7 and 1.5 and top_k 0
+     and 16: its raw draws equal ``random_bits`` bit for bit, its next key
+     the plain split's, and its tokens and lengths the plain version's
+     (a miss only at a reported near-tie of the two best perturbed scores,
+     at most one a call);
   4. engine parity on the card at small configs: the kernel path
      (attention_impl="grouped") against the gather oracle ("torch"),
      token for token: no ring for int4, int8 and float32 KV (reference
@@ -65,12 +72,13 @@ Phases, one line each; any failure raises and exits non-zero:
      beside its bound;
   6. the gpt2s path at full width, as ``python bench.py --model gpt2s``
      runs the JAX package: the 12-layer GPT-2-small-class model (emb 768,
-     12 heads, FFN 3072, pre-LN, output projection, bf16 weights made from
-     a numpy seed the init_params way), int8 paged KV (4096 pages of 32
-     rows), 1024 slots, 16 rounds per burst with a per-burst decode ring,
-     the dgrid partial, sort_admits, 6 bursts per status read and the drain
-     downshift to 512 slots; 2048 requests with prompts uniform in [1, 64].
-     The warm run, timed run and eager run of phase 5: the eager run's
+     12 heads, FFN 3072, pre-LN, output projection, bf16 weights:
+     bench.py's own, init_params(0), made on the card; phase 13), int8
+     paged KV (4096 pages of 32 rows), 1024 slots, 16 rounds per burst
+     with a per-burst decode ring, the dgrid partial, sort_admits, 6
+     bursts per status read and the drain downshift to 512 slots; 2048
+     requests with prompts uniform in [1, 64]. The warm run, timed run
+     and eager run of phase 5: the eager run's
      middle call of each kernel is copied and replayed against the plain
      version;
   7. the host path at full width, as ``python bench.py --engine host
@@ -100,7 +108,30 @@ Phases, one line each; any failure raises and exits non-zero:
      2048 requests in waves of 256 into a ring of 1024 rows, dispatching a
      burst per step and observing each two bursts later; every request
      must equal the one-shot timed run's tokens ([stream] line with the
-     wall).
+     wall);
+ 11. the sampled main path ([main-sample]): phase 5 with temperature 1.5,
+     top_k 16 and sample_seed 7, on the reference model with the JAX
+     package's init_params(0) weights (on bench.py's uniform(0, 1) weights
+     the noise never moves an argmax), the draws made by the sampling
+     kernel inside the burst's graph. Its warm run's host syncs must equal the
+     greedy main path's; the timed run (launch counters from 0) must
+     finish every request with one sampling launch per round; a second
+     run with seed 7 must repeat it token for token, a run with seed 8
+     must differ, and the eager path must equal the graph; the eager
+     run's middle sampling call is replayed against the plain version at
+     its width and, with the same live rows, at GPT-2's vocabulary;
+     StreamingSession on the sampled engine serves the stream twice with
+     one submission pattern, token-identical;
+ 12. the weights path ([weights]): phase 5 with int8 and then fp8
+     weight-only quantized weights (ops/quant.quantize_params), each
+     token-exact with a run on the dense bfloat16 tree that
+     dequantize_weight makes of the same leaves; both walls beside the
+     greedy main path's;
+ 13. [params]: the port's init_params(0) of bench.py's gpt2s model, made
+     on the card and served by phase 6, must have the sha256
+     (models.params.params_checksum) of JAX's init_params(PRNGKey(0), ...)
+     (GPT2S_INIT_SHA256, recomputed from the JAX package on the CPU by
+     tests/test_torch_random.py).
 With --profile, one more run of each full-width path under torch.profiler
 once all ten phases have run ([profile] lines, device time by kernel in
 DIR/<path>_kernels.txt).
@@ -109,7 +140,7 @@ by CUDA events behind a device sleep, device_ev_ms, and from
 torch.profiler, device_ms; taken after every path so that the profiler's
 cost stays out of the walls; the host path's replayed one-slot call also
 gets a device_ev_ms right after its path), a JSON line of per-kernel
-numbers (seven kernels) and, last, the ok line.
+numbers (eight kernels) and, last, the ok line.
 
 Float32 matmuls run in full float32: TF32 is turned off below.
 """
@@ -144,6 +175,15 @@ MAIN = dict(n_vocab=1024, emb_dim=2048, n_seq=128, page_size=32,
 GPT2S = dict(n_vocab=1024, emb_dim=768, n_seq=128, n_layers=12, n_heads=12,
              ffn_dim=3072, page_size=32, n_slots=1024, n_pages=4096,
              requests=2048)
+# bench.py's gpt2s model (its ModelConfig at the default --vocab, --seq
+# and --dtype), and the sha256 of JAX's init_params(PRNGKey(0), ...) of it
+# (models.params.params_checksum; tests/test_torch_random.py recomputes it
+# from the JAX package on the CPU)
+GPT2S_MODEL = dict(n_vocab=1024, emb_dim=768, n_seq=128, n_layers=12,
+                   n_heads=12, ffn_dim=3072, use_output_proj=True,
+                   use_layernorm=True, eof_token_id=1023, dtype="bfloat16")
+GPT2S_INIT_SHA256 = (
+    "14279b8a512e52850020631dd41b911dafec1b13907117e9b7a267b4ffa79af8")
 # the overcommit path's pool, as ``python bench.py --overcommit --pages
 # 3072`` sizes it: 1536 half-units of 2 pages for 1024 slots
 OVERCOMMIT_PAGES = 3072
@@ -157,6 +197,22 @@ SLEEP_CYCLES = 1_000_000
 # the stream path: its ring of prompt rows and its submission waves
 STREAM_CAPACITY = 1024
 STREAM_WAVE = 256
+# the sampled main path's engine options, and the sampling kernel's checks:
+# (temperature, top_k) at each width; GPT-2's vocabulary
+SAMPLE_KW = dict(temperature=1.5, top_k=16, sample_seed=7)
+SAMPLE_SETTINGS = ((0.7, 0), (0.7, 16), (1.5, 0), (1.5, 16))
+GPT2_VOCAB = 50257
+# 32-bit operations of the sampling kernel for each element it draws:
+# threefry2x32 (2 initial adds, 20 rounds of add, rotate and xor, 5 key
+# injections of 2 adds, the final xor: 73), the 64-bit counter (2), the
+# uniform (shift, or, subtract, fma, max: 5), the Gumbel (2 logf and 2
+# negations, each logf counted as one operation) and the add and compare
+# of the argmax; and for each element of a live row, the divide by the
+# temperature and, under top-k, the radix select's four passes of key,
+# mask compare and count
+SAMPLE_DRAW_OPS = 73 + 2 + 5 + 4 + 2
+SAMPLE_ROW_OPS = 1
+SAMPLE_TOPK_OPS = 4 * 3
 
 
 T0 = time.perf_counter()
@@ -909,6 +965,115 @@ def check_one_slot(name, t, H, timed, tol=1e-4):
     return res
 
 
+def sample_case(rng, dev, B, V, lengths=None, dead_share=0.25):
+    """Float32 logits [B, V] (normal, scale 4), lengths (a quarter dead, or
+    the given ones) and a key."""
+    logits = torch.from_numpy(
+        (rng.standard_normal((B, V), dtype=np.float32) * 4)).to(dev)
+    if lengths is None:
+        lens = rng.integers(1, MAIN["n_seq"] - 1, B).astype(np.int32)
+        lens[rng.random(B) < dead_share] = 0
+        lengths = torch.from_numpy(lens).to(dev)
+    key = torch.tensor([0, int(rng.integers(0, 2**32))], dtype=torch.int64,
+                       device=dev)
+    return {"logits": logits, "lengths": lengths, "key": key}
+
+
+def sample_bound(t, temperature, top_k, kept) -> dict:
+    """The sampling kernel's bounds in ms from this call's inputs: bytes
+    (the live rows' float32 logits read once, lengths read, tokens and
+    lengths written, the keys) and 32-bit operations (SAMPLE_ROW_OPS and,
+    under top-k, SAMPLE_TOPK_OPS on every element of a live row;
+    SAMPLE_DRAW_OPS on every element it draws: ``kept``, the elements at
+    or above the top-k threshold, or the whole row) over F32_FLOPS, the
+    table's rate for the card's 32-bit lanes (it has no int32 entry)."""
+    B, V = t["logits"].shape
+    live = int((t["lengths"] > 0).sum())
+    nbytes = live * V * 4 + 3 * B * 4 + 32
+    row_ops = SAMPLE_ROW_OPS + (SAMPLE_TOPK_OPS if 0 < top_k < V else 0)
+    ops = live * V * row_ops + kept * SAMPLE_DRAW_OPS
+    both = bound_of(nbytes, ops)
+    return {"bound": both, "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ops_ms": ops / F32_FLOPS * 1e3, "live_rows": live,
+            "drawn": kept}
+
+
+def check_sample(name, t, temperature, top_k, timed):
+    """The sampling kernel against its plain version on the inputs ``t``:
+    its raw draws (the kernel's debug output) equal random_bits(sub) bit for
+    bit, its next key the plain split's; tokens and lengths are equal but
+    for at most one row whose two best perturbed scores (the plain
+    version's) lie within a relative 1e-6 of each other, where the kernel
+    took the other of the two (a near-tie, reported)."""
+    from min_llm_inference_tpu_torch.ops.random import (
+        MASK32, random_bits, split)
+    from min_llm_inference_tpu_torch.ops.reference import perturbed_scores
+    from min_llm_inference_tpu_torch.ops.sampling import (
+        sample_next_token as kernel, sample_next_token_plain as plain)
+
+    logits, lengths, key = t["logits"], t["lengths"], t["key"]
+    B, V = logits.shape
+    kw = dict(n_seq=MAIN["n_seq"], eof_token_id=MAIN["n_vocab"] - 1,
+              temperature=temperature, top_k=top_k)
+    bits = torch.empty(B, V, dtype=torch.int32, device=logits.device)
+    tok, lens, nkey = kernel(logits, lengths, key, bits_out=bits, **kw)
+    ptok, plens, pkey = plain(logits, lengths, key, **kw)
+    torch.cuda.synchronize()
+    sub = split(key)[1]
+    if not torch.equal(bits.long() & MASK32, random_bits(sub, (B, V))):
+        raise AssertionError(f"{name}: the kernel's draws differ from "
+                             "random_bits")
+    del bits
+    if not torch.equal(nkey, pkey):
+        raise AssertionError(f"{name}: next key {nkey.tolist()} vs "
+                             f"{pkey.tolist()}")
+    pert = perturbed_scores(logits, sub, temperature, top_k)
+    rows = (tok != ptok).nonzero().flatten().tolist()
+    gaps = []
+    for r in rows:
+        top = torch.topk(pert[r], 2)
+        gap = float(top.values[0] - top.values[1]) / max(
+            abs(float(top.values[0])), 1e-30)
+        gaps.append(gap)
+        if gap >= 1e-6 or int(tok[r]) not in top.indices.tolist():
+            raise AssertionError(f"{name}: row {r} token {int(tok[r])} vs "
+                                 f"{int(ptok[r])}, relative gap {gap:.3g}")
+    if len(rows) > 1:
+        raise AssertionError(f"{name}: {len(rows)} near-ties in one call")
+    keep = torch.ones(B, dtype=torch.bool, device=logits.device)
+    keep[rows] = False
+    if not torch.equal(lens[keep], plens[keep]):
+        raise AssertionError(f"{name}: lengths differ")
+    live = lengths > 0
+    kept = int((torch.isfinite(pert) & live[:, None]).sum())
+    del pert
+    res = {"max_abs_err": 0.0, "near_ties": len(rows)}
+    if gaps:
+        res["near_tie_gap"] = gaps[0]
+    b = sample_bound(t, temperature, top_k, kept)
+    if timed:
+        timed_pair(name, res, lambda: kernel(logits, lengths, key, **kw),
+                   lambda: plain(logits, lengths, key, **kw), b["bound"])
+    res.update({k: v for k, v in b.items() if k != "bound"})
+    log_result(name, {"tokens": "== plain", "bits": "identical",
+                      "next_key": "identical", "T": temperature,
+                      "top_k": top_k}, res)
+    return res
+
+
+def sample_checks(rng, dev) -> list:
+    """Phase 3's [sample] checks: every setting at the reference width and
+    at GPT-2's vocabulary, 1024 rows with a quarter dead."""
+    out = []
+    for V in (MAIN["n_vocab"], GPT2_VOCAB):
+        t = sample_case(rng, dev, MAIN["n_slots"], V)
+        for temperature, top_k in SAMPLE_SETTINGS:
+            out.append(check_sample(f"sample-V{V}-T{temperature}-k{top_k}",
+                                    t, temperature, top_k, timed=True))
+        del t
+    return out
+
+
 def check_probe(dev):
     """The int4 probe through its entry point (strict: it raises unless the
     kernel ran and equals its plain version), with every launch counter
@@ -1234,6 +1399,7 @@ def counters():
     from min_llm_inference_tpu_torch.ops import paged_attention_grouped as gr
     from min_llm_inference_tpu_torch.ops import prefill_scatter as ps
     from min_llm_inference_tpu_torch.ops import ring_flush as rf
+    from min_llm_inference_tpu_torch.ops import sampling as sa
     from min_llm_inference_tpu_torch.tools import int4_probe as pr
 
     return {"paged_decode_attention_grouped": gr.paged_decode_attention_grouped,
@@ -1242,7 +1408,8 @@ def counters():
             "prefill_quant_scatter": ps.prefill_quant_scatter,
             "paged_decode_attention": pa.paged_decode_attention,
             "paged_decode_attention_flat": fl.paged_decode_attention_flat,
-            "int4_page_self_dot": pr.int4_page_self_dot}
+            "int4_page_self_dot": pr.int4_page_self_dot,
+            "sample_next_token": sa.sample_next_token}
 
 
 def make_prompts(n, seed, V):
@@ -1342,6 +1509,7 @@ def warm_and_check_syncs(run, label):
         log("graph", path=label, width=b, capture_s=f"{g['capture_s']:.4f}",
             instantiate_s=f"{g['instantiate_s']:.4f}",
             pool_bytes=g["pool_bytes"], nodes=g["nodes"])
+    return st.host_syncs, st.bursts
 
 
 def graph_vs_eager(label, eng, store, wall, e_eng, e_store, e_wall):
@@ -1375,24 +1543,39 @@ def check_outputs(store, n_req, S, V):
     return total
 
 
-def ref_model_run(T, dev, label, dot_dir, **cfg_kw):
-    """The reference-parity model, request stream and engine options of
-    phase 5 under the engine options ``cfg_kw``: (model, cfg, run(n, seed,
-    count_syncs, capture)), after the warm run's sync check."""
+def ref_model(T):
     V, D, S = MAIN["n_vocab"], MAIN["emb_dim"], MAIN["n_seq"]
-    model = T.ModelConfig(n_vocab=V, emb_dim=D, n_seq=S, eof_token_id=V - 1,
-                          dtype="bfloat16")
+    return T.ModelConfig(n_vocab=V, emb_dim=D, n_seq=S, eof_token_id=V - 1,
+                         dtype="bfloat16")
+
+
+def ref_params(T, dev):
+    """bench.py's reference weights (bench_params) as bf16 on the card."""
+    model = ref_model(T)
+    V, D, S = model.n_vocab, model.emb_dim, model.n_seq
+    return T.params_from_numpy(
+        bench_params(np.random.default_rng(0), V, D, S, V - 1), model, dev)
+
+
+def ref_model_run(T, dev, label, dot_dir, params=None, engine_extra=None,
+                  **cfg_kw):
+    """The reference-parity model, request stream and engine options of
+    phase 5 under the engine options ``cfg_kw`` and ``engine_extra`` (the
+    sampling options), on bench.py's weights or ``params``: (model, cfg,
+    run(n, seed, count_syncs, capture), the warm run's (host syncs,
+    bursts)), after the warm run's sync check."""
+    model = ref_model(T)
     cfg = T.EngineConfig(**{**dict(
         n_slots=MAIN["n_slots"], n_pages=MAIN["n_pages"],
         n_forward_rounds=16, page_size=MAIN["page_size"], init_num_pages=2,
         max_prefill_batch=128, subbursts=2), **cfg_kw})
-    params = T.params_from_numpy(
-        bench_params(np.random.default_rng(0), V, D, S, V - 1), model, dev)
+    if params is None:
+        params = ref_params(T, dev)
     engine_kw = dict(max_new_per_burst=512, bursts_per_chunk=24,
-                     request_capacity=MAIN["requests"])
+                     request_capacity=MAIN["requests"], **(engine_extra or {}))
     run = auto_runner(T, dev, params, model, cfg, engine_kw, dot_dir)
-    warm_and_check_syncs(run, label)
-    return model, cfg, run
+    warm = warm_and_check_syncs(run, label)
+    return model, cfg, run, warm
 
 
 def timed_run(run, n_req, want_of, label):
@@ -1419,9 +1602,10 @@ def timed_run(run, n_req, want_of, label):
 def main_path(T, dev, gpu_line, dot_dir, profile_dir=None):
     """Phase 5: the reference path at full width. Returns (the fused-write
     kernel's launches in the timed run, the replayed call's result, (the
-    graph engine, the timed run's store))."""
-    model, cfg, run = ref_model_run(T, dev, "main", dot_dir, kv_dtype="int4",
-                                    decode_ring=False)
+    graph engine, the timed run's store, its wall, the warm run's host
+    syncs and bursts))."""
+    model, cfg, run, warm = ref_model_run(T, dev, "main", dot_dir,
+                                          kv_dtype="int4", decode_ring=False)
     D, S, n_req = model.emb_dim, model.n_seq, MAIN["requests"]
     eng, store, wall, counts = timed_run(run, n_req, lambda st: {
         "paged_decode_attention_grouped": st.rounds * model.n_layers}, "main")
@@ -1458,7 +1642,7 @@ def main_path(T, dev, gpu_line, dot_dir, profile_dir=None):
     res["run_bound_ms_per_launch"] = run_bound / launches
     if profile_dir:
         PROFILE_PENDING.append((lambda: run(n_req, seed=2), wall, "main"))
-    return launches, res, (eng, store)
+    return launches, res, (eng, store, wall, warm)
 
 
 def gpt2s_path(T, dev, gpu_line, dot_dir, profile_dir=None):
@@ -1467,19 +1651,29 @@ def gpt2s_path(T, dev, gpu_line, dot_dir, profile_dir=None):
     g = GPT2S
     V, S, L = g["n_vocab"], g["n_seq"], g["n_layers"]
     n_req = g["requests"]
-    model = T.ModelConfig(n_vocab=V, emb_dim=g["emb_dim"], n_seq=S,
-                          n_layers=L, n_heads=g["n_heads"],
-                          ffn_dim=g["ffn_dim"], use_output_proj=True,
-                          use_layernorm=True, eof_token_id=V - 1,
-                          dtype="bfloat16")
+    model = T.ModelConfig(**GPT2S_MODEL)
     cfg = T.EngineConfig(n_slots=g["n_slots"], n_pages=g["n_pages"],
                          page_size=g["page_size"], n_forward_rounds=16,
                          init_num_pages=2, kv_dtype="int8",
                          max_prefill_batch=128, decode_ring=True,
                          attn_dgrid=True, sort_admits=True, subbursts=1,
                          burst_flush=True)
-    params = T.params_from_numpy(
-        numpy_init_params(np.random.default_rng(0), model, 0.0), model, dev)
+    from min_llm_inference_tpu_torch.models.params import params_checksum
+
+    # bench.py's own weights, made on the card (phase 13)
+    t0 = time.perf_counter()
+    params = T.init_params(0, model, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    checksum = params_checksum(params)
+    log("params", model="gpt2s", seed=0, init_s=f"{init_s:.3f}",
+        leaves=2 + sum(len(layer) for layer in params["layers"]),
+        sha256=checksum,
+        jax_sha256=GPT2S_INIT_SHA256,
+        equal="yes" if checksum == GPT2S_INIT_SHA256 else "NO")
+    if checksum != GPT2S_INIT_SHA256:
+        raise AssertionError("params: init_params(0, gpt2s) on the card is "
+                             "not JAX's init_params(PRNGKey(0), gpt2s)")
     engine_kw = dict(max_new_per_burst=512, bursts_per_chunk=6,
                      min_drain_slots=512, request_capacity=n_req)
     run = auto_runner(T, dev, params, model, cfg, engine_kw, dot_dir)
@@ -1650,7 +1844,7 @@ def flat_path(T, dev, gpu_line, dot_dir, profile_dir=None):
     ring across 2 sub-bursts, one flush per burst) and the flat partial.
     Returns (launches by kernel name of the timed run, {kernel name:
     replayed-call result})."""
-    model, cfg, run = ref_model_run(
+    model, cfg, run, _ = ref_model_run(
         T, dev, "flat", dot_dir, kv_dtype="int4", decode_ring=True,
         burst_flush=True, attn_flat=True)
     L = model.n_layers
@@ -1696,7 +1890,7 @@ def overcommit_path(T, dev, gpu_line, dot_dir, profile_dir=None):
     overcommit on OVERCOMMIT_PAGES pages. The timed run must preempt.
     Returns (launches by kernel name of the timed run, the replayed
     fused-write call's result, preemptions)."""
-    model, cfg, run = ref_model_run(
+    model, cfg, run, _ = ref_model_run(
         T, dev, "overcommit", dot_dir, kv_dtype="int8", decode_ring=False,
         overcommit=True, n_pages=OVERCOMMIT_PAGES)
     L = model.n_layers
@@ -1732,20 +1926,15 @@ def overcommit_path(T, dev, gpu_line, dot_dir, profile_dir=None):
     return launches, res, st.preemptions
 
 
-def stream_path(T, gpu_line, eng, oneshot):
-    """Phase 10: online serving at the reference path's configuration.
-    StreamingSession on the main path's graph engine (its own buffers and
-    graph, captured when it is made) serves phase 5's 2048 requests: waves
-    of STREAM_WAVE submitted whenever the ring of STREAM_CAPACITY rows has
-    room, one burst dispatched per step, each burst's status and
-    final_lens observed two bursts later, completions polled from those
-    snapshots. Every request must equal the one-shot timed run's tokens."""
-    V = MAIN["n_vocab"]
-    n_req = MAIN["requests"]
-    prompts = make_prompts(n_req, 2, V)
-    kernels = counters()
-    for k in kernels.values():
-        k.launches = 0
+def serve_stream(T, eng, prompts):
+    """StreamingSession on ``eng`` (its own buffers and graph, captured
+    when it is made) serves ``prompts``: waves of STREAM_WAVE submitted
+    whenever the ring of STREAM_CAPACITY rows has room, one burst
+    dispatched per step, each burst's status and final_lens observed two
+    bursts later, completions polled from those snapshots. Returns
+    ({request id: request}, the session, seconds to make it, serving wall,
+    waves)."""
+    n_req = len(prompts)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sess = T.StreamingSession(eng, capacity=STREAM_CAPACITY,
@@ -1772,7 +1961,21 @@ def stream_path(T, gpu_line, eng, oneshot):
     for r in sess.close():
         done[r.id] = r
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    return done, sess, setup_s, time.perf_counter() - t0, waves
+
+
+def stream_path(T, gpu_line, eng, oneshot):
+    """Phase 10: online serving at the reference path's configuration.
+    StreamingSession on the main path's graph engine serves phase 5's 2048
+    requests (serve_stream). Every request must equal the one-shot timed
+    run's tokens."""
+    V = MAIN["n_vocab"]
+    n_req = MAIN["requests"]
+    kernels = counters()
+    for k in kernels.values():
+        k.launches = 0
+    done, sess, setup_s, wall, waves = serve_stream(
+        T, eng, make_prompts(n_req, 2, V))
     total = 0
     for rid, req in done.items():
         if req.tokens != oneshot.finished[rid].tokens:
@@ -1788,6 +1991,149 @@ def stream_path(T, gpu_line, eng, oneshot):
         tokens="stream == one-shot", gpu=f"'{gpu_line}'",
         **{f"launches_{k}": v.launches for k, v in kernels.items()
            if v.launches})
+
+
+def tokens_of(store) -> dict:
+    return {rid: r.tokens for rid, r in store.finished.items()}
+
+
+def main_sample_path(T, dev, gpu_line, dot_dir, greedy, profile_dir=None):
+    """Phase 11: the main path with sampled decoding (SAMPLE_KW) on the
+    reference model with init_params(0) weights, the draws made by the
+    sampling kernel inside the burst's graph. ``greedy``: the
+    main path's (wall, warm-run host syncs and bursts). Returns (launches
+    by kernel name of the timed run, the replayed sampling call's results
+    at the reference width and at GPT-2's vocabulary)."""
+    # the JAX package's init_params recipe (uniform(-1, 1) * 0.02) for the
+    # reference model: bench.py's uniform(0, 1) weights make the logit gaps
+    # so wide that Gumbel noise at T = 1.5 never moves an argmax (seeds 7
+    # and 8 gave the same 2048 requests), and the path would be greedy
+    params = T.init_params(0, ref_model(T), device=dev)
+    model, cfg, run, warm = ref_model_run(
+        T, dev, "main-sample", dot_dir, params=params, engine_extra=SAMPLE_KW,
+        kv_dtype="int4", decode_ring=False)
+    main_wall, main_warm = greedy
+    if warm != main_warm:
+        raise AssertionError(f"main-sample: warm run (host syncs, bursts) "
+                             f"{warm}, the greedy main path's {main_warm}")
+    S, V, n_req, L = model.n_seq, model.n_vocab, MAIN["requests"], 1
+    eng, store, wall, launches = timed_run(run, n_req, lambda st: {
+        "paged_decode_attention_grouped": st.rounds * L,
+        "sample_next_token": st.rounds}, "main-sample")
+    st = eng.stats
+    total = check_outputs(store, n_req, S, V)
+    tokens = tokens_of(store)
+    _, again, _ = run(n_req, seed=2)
+    if tokens_of(again) != tokens:
+        raise AssertionError("main-sample: a second run with seed 7 differs")
+    other = auto_runner(T, dev, params, model, cfg, dict(
+        max_new_per_burst=512, bursts_per_chunk=24, request_capacity=n_req,
+        **{**SAMPLE_KW, "sample_seed": 8}), None)
+    _, seed8, _ = other(n_req, seed=2)
+    n_differ = sum(seed8.finished[r].tokens != t for r, t in tokens.items())
+    if not n_differ:
+        raise AssertionError("main-sample: seed 8 gave seed 7's tokens")
+    log("main-sample", requests=n_req, generated=total, wall_s=f"{wall:.4f}",
+        tok_s=f"{total / wall:.1f}", greedy_wall_s=f"{main_wall:.4f}",
+        gpu=f"'{gpu_line}'", bursts=st.bursts, skipped=st.skipped,
+        rounds=st.rounds, prefills=st.prefills,
+        host_syncs_per_burst=f"{st.host_syncs / st.bursts:.3f}",
+        warm_syncs_bursts=f"{warm[0]}/{warm[1]}", seed7_rerun="identical",
+        seed8_requests_differing=n_differ,
+        **{f"launches_{k}": v for k, v in launches.items() if v})
+    # the middle sampling call of that request stream on the eager path,
+    # replayed on its inputs, and the same live rows at GPT-2's vocabulary
+    n_call = launches["sample_next_token"] // 2
+    snaps, eager = capture_calls(lambda: run(n_req, seed=2, capture=False), {
+        "sample": ("runtime.autonomous", "sample_next_token", n_call)})
+    graph_vs_eager("main-sample", eng, store, wall, *eager)
+    (logits, lengths, key), kw = snaps["sample"]
+    t = {"logits": logits, "lengths": lengths, "key": key}
+    res = {"ref": check_sample(f"main-sample-call-{n_call}", t,
+                               kw["temperature"], kw["top_k"], timed=True)}
+    wide = sample_case(np.random.default_rng(3), dev, logits.shape[0],
+                       GPT2_VOCAB, lengths=lengths)
+    wide["key"] = key
+    res["gpt2"] = check_sample(f"main-sample-call-{n_call}-V{GPT2_VOCAB}",
+                               wide, kw["temperature"], kw["top_k"],
+                               timed=True)
+    del wide
+    # the sampled stream: one submission pattern twice, token-identical
+    prompts = make_prompts(n_req, 2, V)
+    runs = []
+    for _ in range(2):
+        done, sess, setup_s, s_wall, waves = serve_stream(T, eng, prompts)
+        runs.append({rid: r.tokens for rid, r in done.items()})
+    if runs[0] != runs[1] or len(runs[0]) != n_req:
+        raise AssertionError("main-sample: the sampled stream is not "
+                             "reproducible")
+    log("stream", path="main-sample", requests=n_req,
+        wall_s=f"{s_wall:.4f}", setup_s=f"{setup_s:.4f}", waves=waves,
+        bursts=sess.stats.bursts,
+        host_syncs_per_burst=
+        f"{sess.stats.host_syncs / sess.stats.bursts:.3f}",
+        tokens="run 1 == run 2", gpu=f"'{gpu_line}'")
+    if profile_dir:
+        PROFILE_PENDING.append((lambda: run(n_req, seed=2), wall,
+                                "main-sample"))
+    return launches, res
+
+
+def dequantized(tree):
+    """The dense bfloat16 tree of a weight-quantized one: each {"q",
+    "scale"} leaf through dequantize_weight (the same matrices the
+    quantized leaves are read as)."""
+    from min_llm_inference_tpu_torch.ops.quant import (
+        dequantize_weight, is_quantized_leaf)
+
+    def conv(x):
+        if is_quantized_leaf(x):
+            return dequantize_weight(x["q"], x["scale"], torch.bfloat16)
+        return x
+
+    return {"wte": conv(tree["wte"]), "wpe": conv(tree["wpe"]),
+            "layers": [{k: conv(v) for k, v in layer.items()}
+                       for layer in tree["layers"]]}
+
+
+def weights_path(T, dev, gpu_line, dot_dir, main_wall,
+                 profile_dir=None) -> None:
+    """Phase 12: the main path on int8, then fp8, weight-only quantized
+    weights (quantize_params of bench.py's bf16 weights), each token-exact
+    with the same path on the dense bf16 tree dequantize_weight makes of
+    the same leaves; one [weights] line each with both walls and the
+    greedy main path's."""
+    n_req = MAIN["requests"]
+    for mode in ("int8", "fp8"):
+        qtree = T.quantize_params(ref_params(T, dev), mode)
+        out = {}
+        for form, tree in (("quantized", qtree),
+                           ("dense", dequantized(qtree))):
+            model, _, run, _ = ref_model_run(
+                T, dev, f"weights-{mode}-{form}", dot_dir, params=tree,
+                kv_dtype="int4", decode_ring=False)
+            eng, store, wall, _ = timed_run(run, n_req, lambda st: {
+                "paged_decode_attention_grouped": st.rounds},
+                f"weights-{mode}-{form}")
+            out[form] = (tokens_of(store), wall, eng.stats, store)
+            if profile_dir and form == "quantized":
+                PROFILE_PENDING.append((lambda run=run: run(n_req, seed=2),
+                                        wall, f"weights-{mode}"))
+        if out["quantized"][0] != out["dense"][0]:
+            first = next(r for r, t in out["quantized"][0].items()
+                         if out["dense"][0][r] != t)
+            raise AssertionError(f"weights-{mode}: request {first} differs "
+                                 "from the dequantized dense tree")
+        total = check_outputs(out["quantized"][3], n_req, model.n_seq,
+                              model.n_vocab)
+        q_wall, d_wall = out["quantized"][1], out["dense"][1]
+        st = out["quantized"][2]
+        log("weights", mode=mode, requests=n_req, generated=total,
+            wall_s=f"{q_wall:.4f}", tok_s=f"{total / q_wall:.1f}",
+            dense_bf16_wall_s=f"{d_wall:.4f}",
+            main_bf16_wall_s=f"{main_wall:.4f}",
+            tokens="quantized == dequantized dense", bursts=st.bursts,
+            rounds=st.rounds, gpu=f"'{gpu_line}'")
 
 
 def phase_seconds(stats) -> str:
@@ -1893,6 +2239,9 @@ SOURCES = {
     "paged_decode_attention_flat": (
         "paged_attention_flat.cu", f"{JAX_OPS}/paged_attention_flat.py:337"),
     "int4_page_self_dot": ("int4_probe.cu", "tools/int4_probe.py:25"),
+    # no Pallas kernel: the JAX package samples with XLA
+    "sample_next_token": ("sample_next_token.cu",
+                          f"{JAX_OPS}/reference.py:170"),
 }
 
 
@@ -2065,6 +2414,8 @@ def main() -> int:
     split = split_times(rng, dev)
     probe_launches, probe_res = check_probe(dev)
     errs["int4_page_self_dot"].append(probe_res["max_abs_err"])
+    sample_rand = sample_checks(rng, dev)
+    errs["sample_next_token"] += [r["max_abs_err"] for r in sample_rand]
 
     mode_c_engine = engine_parity(T, dev)
     flat_engine = variant_parity(T, dev)
@@ -2072,7 +2423,7 @@ def main() -> int:
     # ms, plain_ms and bound_ms: one call of each path replayed on its real
     # inputs; launches: each path's timed run
     dot_dir = tempfile.mkdtemp(prefix="burst-graphs-")
-    ref_launches, ref, (ref_eng, ref_store) = main_path(
+    ref_launches, ref, (ref_eng, ref_store, ref_wall, ref_warm) = main_path(
         T, dev, gpu_line, dot_dir, args.profile)
     errs["paged_decode_attention_grouped"].append(ref["max_abs_err"])
     g_launches, g_res = gpt2s_path(T, dev, gpu_line, dot_dir, args.profile)
@@ -2087,6 +2438,10 @@ def main() -> int:
     o_launches, o_res, preemptions = overcommit_path(T, dev, gpu_line,
                                                      dot_dir, args.profile)
     stream_path(T, gpu_line, ref_eng, ref_store)
+    s_launches, s_res = main_sample_path(T, dev, gpu_line, dot_dir,
+                                         (ref_wall, ref_warm), args.profile)
+    errs["sample_next_token"] += [r["max_abs_err"] for r in s_res.values()]
+    weights_path(T, dev, gpu_line, dot_dir, ref_wall, args.profile)
     for run, wall, label in PROFILE_PENDING:
         profile_path(run, args.profile, wall, label)
     PROFILE_PENDING.clear()
@@ -2165,6 +2520,22 @@ def main() -> int:
         probe_res,
         yardstick_device_ms=probe_res["yardstick"]["device_ms"],
         yardstick_device_ev_ms=probe_res["yardstick"]["device_ev_ms"]))
+    sr = s_res["ref"]
+    entries.append(kernel_entry(
+        "sample_next_token", s_launches["sample_next_token"],
+        errs["sample_next_token"], sr,
+        near_ties=sum(r["near_ties"] for r in (*sample_rand,
+                                               *s_res.values())),
+        live_rows=sr["live_rows"], drawn=sr["drawn"],
+        bound_bytes_ms=sr["bound_bytes_ms"], bound_ops_ms=sr["bound_ops_ms"],
+        **{f"gpt2_vocab_{k}": s_res["gpt2"][k]
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                     "bound_bytes_ms", "bound_ops_ms", "drawn")},
+        **{f"random_V{r_V}_T{T_}_k{k_}_{n}": r[n]
+           for (r_V, (T_, k_)), r in zip(
+               [(V_, st_) for V_ in (MAIN["n_vocab"], GPT2_VOCAB)
+                for st_ in SAMPLE_SETTINGS], sample_rand)
+           for n in ("ms", "device_ms", "plain_ms", "bound_ms")}))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,16 +9,21 @@ without a GPU they raise rather than run on the CPU.
 
 Ported so far: AutonomousEngine (full grant and overcommit, with and
 without ring decode: the reference model of ``bench.py``, its 12-layer
-gpt2s path, the flat and overcommit paths), whose burst runs on the card
-as one CUDA graph with the liveness gate and the prefill bucket as
-conditional nodes (runtime/graph.py, csrc/graph_cond.cu), and
-StreamingSession on it; the host-scheduled engines (PagedEngine with the
-Python page scheduler, NativePagedEngine with the C++ one built from
-csrc/scheduler.cpp at first use, DenseEngine); every Pallas kernel of the
+gpt2s path, the flat and overcommit paths; greedy or sampled, with JAX's
+own threefry bits, ops/random), whose burst runs on the card as one CUDA
+graph with the liveness gate and the prefill bucket as conditional nodes
+(runtime/graph.py, csrc/graph_cond.cu), and StreamingSession on it;
+``init_params`` (JAX's weights bit for bit), weight-only int8/fp8
+(ops/quant), checkpoints and the ΔPPL harness (utils/); the
+host-scheduled engines (PagedEngine with the Python page scheduler,
+NativePagedEngine with the C++ one built from csrc/scheduler.cpp at first
+use, DenseEngine); every Pallas kernel of the
 JAX package as a hand-written CUDA kernel under csrc/ (paged attention
 with the fused write and the ring partial, one-slot paged attention, the
 group-view and flat ring partials, the ring flush, the int8 prefill
-quantize + scatter, the int4 probe).
+quantize + scatter, the int4 probe), and the sampling kernel
+(csrc/sample_next_token.cu). Not yet: the dp x tp mesh engines
+(parallel/).
 """
 
 from .config import EngineConfig, ModelConfig, resolve_device
@@ -30,7 +35,8 @@ from .constants import (
 )
 from .metrics import ThroughputCounter, get_global_throughput_counter
 from .models.paged import PagedKVState, init_paged_state
-from .models.params import fuse_qkv_params, params_from_numpy
+from .models.params import fuse_qkv_params, init_params, params_from_numpy
+from .ops.quant import quantize_params
 from .runtime.autonomous import (
     AutonomousEngine,
     BurstStats,
@@ -60,7 +66,9 @@ __all__ = [
     "PagedKVState",
     "init_paged_state",
     "fuse_qkv_params",
+    "init_params",
     "params_from_numpy",
+    "quantize_params",
     "AutonomousEngine",
     "BurstStats",
     "StreamingSession",

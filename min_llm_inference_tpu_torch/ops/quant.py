@@ -1,7 +1,8 @@
-"""KV quantization ops: int8 and packed int4 pages with per-page scales.
+"""Quantization ops: int8 and packed int4 KV pages with per-page scales,
+and weight-only int8 / fp8 (e4m3) matrices with per-output-column scales.
 
-Counterpart of the KV half of min_llm_inference_tpu/ops/quant.py; every
-function here must give the JAX function's bytes on identical float inputs.
+Counterpart of min_llm_inference_tpu/ops/quant.py; every function here
+must give the JAX function's bytes on identical float inputs.
 The float32 arithmetic is spelled out (``ones / s``, scalars rounded to
 float32 first) so that CPU and CUDA both do exactly one IEEE operation
 where JAX does one.
@@ -86,3 +87,85 @@ def quantize_rows_against_pages(values, flat_idx, page_scales, page_size,
                       0, n_pages - 1)
     return quantize_against(values, inv_scale(page_scales[pid])[:, None],
                             qmax)
+
+
+# ---- weight-only quantization: {"q", "scale"} leaves ----
+
+FP8_MAX = 448.0  # float8_e4m3fn
+
+
+def _column_scales(w, qmax: float):
+    """Per-output-column absmax / qmax of w [D_in, D_out] in float32, and
+    its IEEE reciprocal (0 for an all-zero column). qmax divides as a
+    tensor: CUDA turns a Python scalar divisor into a reciprocal
+    multiply."""
+    wf = w.float()
+    scale = wf.abs().amax(dim=0) / torch.full((), qmax, dtype=torch.float32,
+                                              device=wf.device)
+    return wf, scale, inv_scale(scale)
+
+
+def quantize_weight(w):
+    """Weight-only int8: w [D_in, D_out] -> (q int8 [D_in, D_out], scale f32
+    [D_out]), q = clip(round(w / scale), +-127), round half to even."""
+    wf, scale, inv = _column_scales(w, INT8_MAX)
+    return quantize_against(wf, inv[None, :], INT8_MAX), scale
+
+
+def quantize_weight_fp8(w):
+    """Weight-only fp8 (e4m3): the column absmax scaled to FP8_MAX, then
+    one rounding to float8_e4m3fn. -> (q [D_in, D_out], scale f32
+    [D_out])."""
+    wf, scale, inv = _column_scales(w, FP8_MAX)
+    return (wf * inv[None, :]).to(torch.float8_e4m3fn), scale
+
+
+def dequantize_weight(q, scale, dtype=torch.bfloat16):
+    """q * scale per column, in float32, cast to ``dtype``."""
+    return (q.float() * scale[None, :].float()).to(dtype)
+
+
+def quantize_params(params, mode: str = "int8"):
+    """Every 2-D weight of a parameter tree as a {"q", "scale"} leaf
+    (embeddings included: the tied LM head reads wte through the same
+    dequantization). mode: "int8" or "fp8". Returns a new tree."""
+    if mode not in ("int8", "fp8"):
+        raise ValueError(f"mode must be int8 or fp8, got {mode!r}")
+    fn = quantize_weight if mode == "int8" else quantize_weight_fp8
+
+    def conv(x):
+        if isinstance(x, torch.Tensor) and x.dim() == 2:
+            q, s = fn(x)
+            return {"q": q, "scale": s}
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [conv(v) for v in x]
+        return x
+
+    return conv(params)
+
+
+def is_quantized_leaf(w) -> bool:
+    return isinstance(w, dict) and "q" in w
+
+
+def maybe_dequant(w, dtype):
+    """A possibly weight-quantized leaf as a dense matrix in ``dtype``."""
+    if is_quantized_leaf(w):
+        return dequantize_weight(w["q"], w["scale"], dtype)
+    return w
+
+
+def gather_rows(w, idx, dtype):
+    """Rows ``idx`` of a possibly weight-quantized table; a quantized
+    table's rows are dequantized in float32, then cast to ``dtype``."""
+    if is_quantized_leaf(w):
+        q = w["q"]
+        if q.dtype == torch.float8_e4m3fn:
+            # gather the bytes (an integer gather runs on every backend)
+            rows = q.view(torch.uint8)[idx].view(q.dtype)
+        else:
+            rows = q[idx]
+        return (rows.float() * w["scale"][None, :]).to(dtype)
+    return w[idx]

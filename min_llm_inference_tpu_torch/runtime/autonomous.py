@@ -4,9 +4,9 @@ Counterpart of min_llm_inference_tpu/runtime/autonomous.py. The request
 queue (padded prompts + lengths) is uploaded once; each burst frees dead
 slots' pages (vectorized stack push), admits queue-head requests into dead
 slots (vectorized stack pop), prefills them, runs n_forward_rounds of
-greedy decode and scatters the tokens into a device-resident output
-buffer. The host reads a 5-int status once per chunk of bursts and the
-outputs once at the end.
+decode (greedy or sampled) and scatters the tokens into a device-resident
+output buffer. The host reads a 5-int status once per chunk of bursts and
+the outputs once at the end.
 
 Admission policy (``EngineConfig.overcommit``):
   * full grant (default): a slot gets one contiguous W-page group at
@@ -40,10 +40,15 @@ nodes; a chunk replays it ``bursts_per_chunk`` times and reads the 5-int
 status once. ``BurstStats.host_syncs`` counts every sync of a run: the two
 input uploads, one status read per chunk and the final pull.
 
+Sampling (``temperature > 0``, optional ``top_k``): the state carries a
+threefry key (ops/random, JAX's own bits); every executed round splits it
+and draws its tokens (ops/sampling: on CUDA one kernel launch that does
+the split too, inside the graph), as the JAX burst's scan does. A burst
+the gate skips draws nothing, and the key rides across sub-bursts, chunks
+and drain widths, so the tokens are JAX's for the same seed.
+
 StreamingSession serves on the same burst: submit, step, dispatch/observe,
 poll and close, with rows recycled mod capacity.
-
-Not ported yet (raises NotImplementedError): sampling.
 """
 
 from __future__ import annotations
@@ -69,10 +74,12 @@ from ..models.paged import (
     pack_ring_for_flush,
     ring_pad_rows,
 )
-from ..models.params import fuse_qkv_params
+from ..models.params import fuse_qkv_params, params_device
 from ..ops import _build
 from ..ops.indexing import index_set_drop_
+from ..ops.random import prng_key
 from ..ops.ring_flush import ring_flush
+from ..ops.sampling import sample_next_token
 from ..utils.profiling import phase
 from .graph import (
     capture,
@@ -101,6 +108,7 @@ class AutoState(NamedTuple):
                                # unit: W pages, or W/2 under overcommit)
     out_tokens: torch.Tensor   # [R_total, S] i32 generated tokens by position
     final_lens: torch.Tensor   # [R_total] i32 (0 = unfinished)
+    rng_key: torch.Tensor | None = None      # [2] i64 (sampling only)
     # --- overcommit only (None under full grant) ---
     grown: torch.Tensor | None = None        # [B] bool, slot holds 2 halves
     adm_seq: torch.Tensor | None = None      # [B] i32 admission order
@@ -136,11 +144,13 @@ def _check_supported(engine_cfg: EngineConfig, attention_impl: str) -> None:
 
 
 def init_auto_state(model_cfg: ModelConfig, engine_cfg: EngineConfig,
-                    n_requests: int, device=None) -> AutoState:
+                    n_requests: int, device=None,
+                    sample_seed: int | None = None) -> AutoState:
     """The free list holds unit ids and a slot's page-table row is made of
     contiguous units: one W-page group under full grant, two W/2-page
     halves under overcommit (an ungrown slot's second half repeats its
-    first). ``device``: ``cuda`` unless the caller names another (raises
+    first). ``sample_seed``: the sampling key's seed (None = greedy, no
+    key). ``device``: ``cuda`` unless the caller names another (raises
     without a GPU)."""
     dev = resolve_device(device)
     B = engine_cfg.n_slots
@@ -163,6 +173,8 @@ def init_auto_state(model_cfg: ModelConfig, engine_cfg: EngineConfig,
         page_stack=torch.arange(NG, dtype=I32, device=dev),
         out_tokens=zeros(n_requests, model_cfg.n_seq),
         final_lens=zeros(n_requests),
+        rng_key=(None if sample_seed is None
+                 else prng_key(sample_seed, dev)),
         grown=zeros(B, dtype=torch.bool) if oc else None,
         adm_seq=zeros(B) if oc else None,
         seq_ctr=zeros() if oc else None,
@@ -430,16 +442,17 @@ def _prefill_bucket(m, sizes) -> torch.Tensor:
 
 
 def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
-               attention_impl: str, max_new: int, ctx, R: int,
+               attention_impl: str, max_new: int, ctx, sampling, R: int,
                round_offset: int, ring_ctx, do_flush: bool, params,
                st: AutoState, prompts_all, plens_all, n_real, counts):
     """One admit -> prefill -> R decode rounds. ``ring_ctx`` (rings, scale
     columns, ring_start, ring_r0) is the burst-wide ring threaded across
     sub-bursts, or None (a fresh ring per sub-burst when ring decode is on);
     ``round_offset`` is the absolute round of this sub-burst's first round
-    and ``do_flush`` lands the ring in the pages at its end. Pools, outputs
-    and ``counts`` are written in place. Returns (state, ring_ctx, host
-    syncs made)."""
+    and ``do_flush`` lands the ring in the pages at its end. ``sampling``:
+    None (greedy) or (temperature, top_k), each round then splitting
+    ``st.rng_key``. Pools, outputs and ``counts`` are written in place.
+    Returns (state, ring_ctx, host syncs made)."""
     dev = st.lengths.device
     NP = engine_cfg.n_pages
     P = engine_cfg.page_size
@@ -501,6 +514,7 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     kv_pages, k_scales, v_scales = (list(kv.kv_pages), list(kv.k_scales),
                                     list(kv.v_scales))
     row = rid % R_total
+    key = st.rng_key
     toks, out_idx, fin_rid, fin_len = [], [], [], []
     for r in range(R):
         live = lengths > 0
@@ -513,8 +527,20 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
             write_kv, attend = make_round_kv_callbacks(
                 model_cfg, engine_cfg, attention_impl, page_table,
                 kv_pages, k_scales, v_scales, lengths, n_heads=heads)
-        tok, new_lengths = decode_round_tokens(
-            params, model_cfg, lengths, last_tokens, write_kv, attend, ctx)
+        if sampling is None:
+            tok, new_lengths = decode_round_tokens(
+                params, model_cfg, lengths, last_tokens, write_kv, attend,
+                ctx)
+        else:
+            def draw(logits, lens, key=key):
+                return sample_next_token(
+                    logits, lens, key, n_seq=S,
+                    eof_token_id=model_cfg.eof_token_id,
+                    temperature=sampling[0], top_k=sampling[1])
+
+            tok, new_lengths, key = decode_round_tokens(
+                params, model_cfg, lengths, last_tokens, write_kv, attend,
+                ctx, next_token_fn=draw)
         # the emitted token's position in its sequence is the old length
         toks.append(tok)
         out_idx.append(torch.where(live, row * S + lengths, R_total * S))
@@ -534,7 +560,7 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
 
     new_st = AutoState(kv, page_table, lengths, last_tokens, rid, allocated,
                        queue_head, free_top, page_stack, st.out_tokens,
-                       st.final_lens, **oc)
+                       st.final_lens, key, **oc)
     ring_ctx_out = (None if ring_ctx is None
                     else (rings, ring_scs, ring_start, ring_r0))
     return new_st, ring_ctx_out, syncs
@@ -555,19 +581,22 @@ def _store_(dst: AutoState, src: AutoState) -> None:
             d.copy_(s)
 
 
-def _reset_state_(st: AutoState, n_units: int) -> None:
-    """Bring a state's buffers back to init_auto_state's values."""
+def _reset_state_(st: AutoState, n_units: int, key0) -> None:
+    """Bring a state's buffers back to init_auto_state's values (``key0``:
+    the sampling key at the start, or None)."""
     for t in _state_tensors(st):
         t.zero_()
+    if key0 is not None:
+        st.rng_key.copy_(key0)
     st.free_top.fill_(n_units)
     torch.arange(n_units, dtype=I32, device=st.page_stack.device,
                  out=st.page_stack)
 
 
 def _autonomous_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
-                      attention_impl: str, max_new: int, ctx, params,
-                      st: AutoState, prompts_all, plens_all, n_real, counts,
-                      status) -> int:
+                      attention_impl: str, max_new: int, ctx, sampling,
+                      params, st: AutoState, prompts_all, plens_all, n_real,
+                      counts, status) -> int:
     """One burst, in place on ``st``'s buffers: ``subbursts`` repetitions
     of admit -> prefill -> decode (n_forward_rounds / subbursts rounds
     each), so dead slots refill every R/subbursts rounds while the host
@@ -606,7 +635,8 @@ def _autonomous_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
         cur = st
         for k in range(n_sub):
             cur, ring_ctx, syncs = _sub_burst(
-                model_cfg, engine_cfg, attention_impl, max_new, ctx, r_sub,
+                model_cfg, engine_cfg, attention_impl, max_new, ctx,
+                sampling, r_sub,
                 k * r_sub, ring_ctx, (not burst_ring) or k == n_sub - 1,
                 params, cur, prompts_all, plens_all, n_real, counts)
             inner.append(syncs)
@@ -661,7 +691,9 @@ class _Program:
         self.device = dev = engine.device
         ecfg = engine.engine_cfg
         self.full = ecfg.n_slots
-        full = init_auto_state(engine.model_cfg, ecfg, cap, dev)
+        full = init_auto_state(engine.model_cfg, ecfg, cap, dev,
+                               engine.sample_seed)
+        self.key0 = None if full.rng_key is None else full.rng_key.clone()
         self.st = {ecfg.n_slots: full}
         for b in widths[1:]:
             self.st[b] = full._replace(**{
@@ -681,8 +713,9 @@ class _Program:
             ecfg if b == ecfg.n_slots else dataclasses.replace(
                 ecfg, n_slots=b),
             engine.attention_impl, min(engine.max_new, b), DEFAULT_CTX,
-            engine.params, st, self.prompts, self.plens, self.n_real,
-            self.counts, self.status) for b, st in self.st.items()}
+            engine.sampling, engine.params, st, self.prompts, self.plens,
+            self.n_real, self.counts, self.status)
+            for b, st in self.st.items()}
         self.graphs = {}
 
     def burst(self, b: int) -> int:
@@ -722,7 +755,7 @@ class _Program:
     def reset(self) -> None:
         """The initial state and zero counters (every width's per-slot
         buffers are written by the compaction before that width runs)."""
-        _reset_state_(self.st[self.full], self.n_units)
+        _reset_state_(self.st[self.full], self.n_units, self.key0)
         self.counts.zero_()
 
     def compact(self, b_from: int, b_to: int) -> None:
@@ -758,9 +791,12 @@ class AutonomousEngine:
     ``attention_impl``: ``"grouped"`` (the CUDA kernels: the fused-write
     kernel, or with ``decode_ring`` the ring partial of the configured
     formulation; their plain versions on the CPU) or ``"torch"`` (scatter +
-    the gather oracle, no ring). ``device``: ``cuda`` unless the caller
-    names another; raises without a GPU. ``params`` are tensors on that
-    device (models.params_from_numpy).
+    the gather oracle, no ring). ``temperature > 0`` samples (with
+    ``top_k`` > 0 keeping the k largest logits) from the key of
+    ``sample_seed``, as the JAX engine does; 0 decodes greedily.
+    ``device``: ``cuda`` unless the caller names another; raises without a
+    GPU. ``params`` are tensors on that device (models.params_from_numpy,
+    models.init_params), dense or weight-quantized (ops/quant).
 
     On CUDA a burst is one CUDA graph per executed width, captured at the
     first run of a queue shape (request capacity, prompt bucket) and
@@ -782,6 +818,8 @@ class AutonomousEngine:
         request_capacity: int | None = None,
         min_drain_slots: int | None = None,
         temperature: float = 0.0,
+        top_k: int = 0,
+        sample_seed: int = 0,
         device=None,
         _capture: bool = True,
         _graph_dot_dir: str | None = None,
@@ -789,11 +827,9 @@ class AutonomousEngine:
         model_cfg.validate()
         engine_cfg.validate(model_cfg)
         _check_supported(engine_cfg, attention_impl)
-        if temperature > 0:
-            raise NotImplementedError("sampling is not ported yet")
         self.device = resolve_device(device)
-        if params["wte"].device.type != self.device.type:
-            raise ValueError(f"params are on {params['wte'].device}, the "
+        if params_device(params).type != self.device.type:
+            raise ValueError(f"params are on {params_device(params)}, the "
                              f"engine runs on {self.device}")
         self.params = fuse_qkv_params(params)
         self.model_cfg = model_cfg
@@ -805,6 +841,11 @@ class AutonomousEngine:
         # drain downshift floor; n_slots = disabled
         self.min_drain_slots = (max(8, min_drain_slots) if min_drain_slots
                                 else engine_cfg.n_slots)
+        # temperature > 0 samples (ops/sampling); host engines stay greedy,
+        # which their preemption recompute relies on
+        self.sampling = ((float(temperature), int(top_k)) if temperature > 0
+                         else None)
+        self.sample_seed = sample_seed if self.sampling else None
         self.use_graphs = self.device.type == "cuda" and _capture
         self.graph_dot_dir = _graph_dot_dir
         self.graph_info = {}
@@ -938,7 +979,9 @@ class StreamingSession:
 
     Greedy decode makes a request's tokens depend only on its prompt and
     the weights, never on when it was submitted or which slot it took: the
-    outputs equal the one-shot engine's token for token.
+    outputs equal the one-shot engine's token for token. Sampled decode
+    draws by slot and round, so it is reproducible for a fixed seed and
+    submission pattern (as the JAX session's).
 
     On CUDA the burst is the engine's graph over the session's own buffers
     (captured when the session is made); ``dispatch`` replays it and starts

@@ -41,7 +41,7 @@ from ..config import EngineConfig, ModelConfig, resolve_device
 from ..metrics import get_global_throughput_counter
 from ..models.dense import init_dense_state, make_dense_fns
 from ..models.paged import init_paged_state, make_paged_fns
-from ..models.params import fuse_qkv_params
+from ..models.params import fuse_qkv_params, params_device
 from ..utils.profiling import phase
 from .item_storage import (
     ItemStorage,
@@ -80,8 +80,8 @@ class _EngineBase:
         model_cfg.validate()
         engine_cfg.validate(model_cfg)
         self.device = resolve_device(device)
-        if params["wte"].device.type != self.device.type:
-            raise ValueError(f"params are on {params['wte'].device}, the "
+        if params_device(params).type != self.device.type:
+            raise ValueError(f"params are on {params_device(params)}, the "
                              f"engine runs on {self.device}")
         self.params = fuse_qkv_params(params)
         self.model_cfg = model_cfg

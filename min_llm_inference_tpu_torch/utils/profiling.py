@@ -1,15 +1,18 @@
-"""Engine phase ranges (counterpart of the ``phase``/``PhaseStats`` half of
+"""Engine phase ranges and trace capture (counterpart of
 min_llm_inference_tpu/utils/profiling.py).
 
 ``phase(name)`` marks one host-side engine phase: a
 ``torch.profiler.record_function`` range, visible on the host timeline of a
 ``torch.profiler`` trace, plus host wall-time accumulation in a
-process-global ``PhaseStats``.
+process-global ``PhaseStats``. ``trace(logdir)`` captures a
+``torch.profiler`` trace of the host and, where there is one, the CUDA
+device into ``logdir``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Iterator
@@ -61,3 +64,21 @@ def phase(name: str) -> Iterator[None]:
     with torch.profiler.record_function(name):
         yield
     _global_stats.add(name, time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def trace(logdir: str | None) -> Iterator[None]:
+    """Capture a torch.profiler trace into ``logdir`` as a Chrome trace
+    (``trace.json``; open it in Perfetto or chrome://tracing), with the
+    CUDA device's rows when CUDA is available; None is a no-op. Host rows
+    show the ``phase(...)`` ranges."""
+    if not logdir:
+        yield
+        return
+    os.makedirs(logdir, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -140,13 +140,3 @@ def test_entry_points_raise_without_a_gpu(params):
     for engine in (T.PagedEngine, T.NativePagedEngine, T.DenseEngine):
         with pytest.raises(RuntimeError, match="CUDA"):
             engine(params[1], TMODEL, cfg)
-
-
-def test_unported_paths_raise(params):
-    """Sampling is the one AutonomousEngine option not ported yet."""
-    cfg = T.EngineConfig(n_slots=8, page_size=16, n_pages=32,
-                         decode_ring=False)
-    with pytest.raises(NotImplementedError):
-        T.AutonomousEngine(params[1], TMODEL, cfg, temperature=0.7,
-                           device="cpu")
-

@@ -34,9 +34,20 @@ from min_llm_inference_tpu_torch.ops.prefill_scatter import (
     prefill_quant_scatter_plain,
 )
 from min_llm_inference_tpu_torch.ops.quant import kv_qmax, update_page_scales
+from min_llm_inference_tpu_torch.ops.random import (
+    MASK32,
+    prng_key,
+    random_bits,
+    split,
+)
+from min_llm_inference_tpu_torch.ops.reference import perturbed_scores
 from min_llm_inference_tpu_torch.ops.ring_flush import (
     ring_flush,
     ring_flush_plain,
+)
+from min_llm_inference_tpu_torch.ops.sampling import (
+    sample_next_token,
+    sample_next_token_plain,
 )
 from min_llm_inference_tpu_torch.tools import int4_probe
 import min_llm_inference_tpu_torch as T
@@ -45,7 +56,7 @@ from min_llm_inference_tpu_torch.runtime import autonomous as tauto
 # the wrappers whose launches the burst tests count
 KERNELS = {"grouped": paged_decode_attention_grouped,
            "dgrid": dgrid_paged_partial, "flat": paged_decode_attention_flat,
-           "prefill": prefill_quant_scatter}
+           "prefill": prefill_quant_scatter, "sample": sample_next_token}
 
 
 @pytest.fixture
@@ -720,6 +731,113 @@ def test_grouped_all_dead(cuda, kind):
     assert torch.equal(pool, x["pool"])
 
 
+def check_sample(logits, lengths, key, temperature, top_k, n_seq=128,
+                 eof=1023):
+    """The sampling kernel against its plain version on the same inputs:
+    its raw draws equal random_bits(sub) bit for bit and its next key the
+    plain split's; tokens and lengths are equal, but for at most one row
+    whose two best perturbed scores (the plain version's) lie within 1e-6
+    of each other, relatively, where the kernel took the other of the
+    two."""
+    B, V = logits.shape
+    bits = torch.empty(B, V, dtype=torch.int32, device=logits.device)
+    before = sample_next_token.launches
+    kw = dict(n_seq=n_seq, eof_token_id=eof, temperature=temperature,
+              top_k=top_k)
+    tok, lens, nkey = sample_next_token(logits, lengths, key, bits_out=bits,
+                                        **kw)
+    assert sample_next_token.launches == before + 1
+    ptok, plens, pkey = sample_next_token_plain(logits, lengths, key, **kw)
+    torch.cuda.synchronize()
+    sub = split(key)[1]
+    assert torch.equal(bits.long() & MASK32, random_bits(sub, (B, V)))
+    assert torch.equal(nkey, pkey)
+    rows = (tok != ptok).nonzero().flatten().tolist()
+    assert len(rows) <= 1, rows
+    for r in rows:
+        pert = perturbed_scores(logits[r:r + 1], sub, temperature, top_k)
+        top = torch.topk(pert[0], 2)
+        gap = float(top.values[0] - top.values[1])
+        assert gap <= 1e-6 * abs(float(top.values[0])), (r, gap)
+        assert int(tok[r]) in top.indices.tolist()
+    keep = torch.ones(B, dtype=torch.bool, device=logits.device)
+    keep[rows] = False
+    assert torch.equal(lens[keep], plens[keep])
+    return tok, lens
+
+
+def sample_inputs(dev, seed, B, V, dead_share=0.25):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    logits = (torch.randn(B, V, generator=g) * 4).to(dev)
+    lengths = torch.randint(1, 127, (B,), generator=g, dtype=torch.int32)
+    lengths[torch.rand(B, generator=g) < dead_share] = 0
+    return logits, lengths.to(dev), prng_key(seed, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [1024, 50257, 60000])
+@pytest.mark.parametrize("temperature,top_k", [(0.7, 0), (0.7, 16),
+                                               (1.5, 0), (1.5, 16),
+                                               (1.0, 1), (1.0, 1000)])
+def test_sample_kernel_matches_plain(cuda, V, temperature, top_k):
+    """The reference path's width (1024), gpt2s' (50257), and one past the
+    shared-memory row (60000: top-k re-reads the row from global memory);
+    1024 rows (256 at the widest), a quarter of them dead."""
+    B = 256 if V > 50257 else 1024
+    logits, lengths, key = sample_inputs(cuda, V + top_k, B, V)
+    tok, lens = check_sample(logits, lengths, key, temperature, top_k)
+    dead = lengths == 0
+    assert (tok[dead] == T.EMPTY_ROW_TOKEN_ID).all() and (lens[dead] == 0).all()
+    assert ((tok[~dead] >= 0) & (tok[~dead] < V)).all()
+
+
+@pytest.mark.cuda
+def test_sample_kernel_edges(cuda):
+    """Every row dead; a row at n_seq - 1 and one drawing EOF end; ties at
+    the top-k threshold stay in; one row; a strided row slice."""
+    logits, lengths, key = sample_inputs(cuda, 3, 64, 512, dead_share=1.0)
+    tok, lens = check_sample(logits, lengths, key, 1.0, 8)
+    assert (tok == T.EMPTY_ROW_TOKEN_ID).all() and (lens == 0).all()
+    logits = torch.full((64, 512), -20.0, device=cuda)
+    logits[:, 7] = logits[:, 100] = logits[:, 300] = 5.0
+    logits[1, :] = -20.0
+    logits[1, 1023 % 512] = 50.0
+    lengths = torch.full((64,), 5, dtype=torch.int32, device=cuda)
+    lengths[0] = 127
+    tok, lens = check_sample(logits, lengths, key, 1.0, 2, eof=1023 % 512)
+    assert int(lens[0]) == 0 and int(tok[1]) == 1023 % 512 and lens[1] == 0
+    assert set(tok[2:].tolist()) == {7, 100, 300}
+    check_sample(logits[:1], lengths[:1], key, 0.7, 0)
+    wide = torch.randn(32, 2048, device=cuda)
+    check_sample(wide[:, :1000], lengths[:32], key, 1.5, 16)
+
+
+@pytest.mark.cuda
+def test_sample_kernel_chain_of_rounds(cuda):
+    """Round after round the kernel's next key is the plain split's, so a
+    burst's draws follow JAX's carry."""
+    logits, lengths, key = sample_inputs(cuda, 5, 128, 1024)
+    pkey = key.clone()
+    for _ in range(5):
+        _, _, key = sample_next_token(logits, lengths, key, n_seq=128,
+                                      eof_token_id=1023, temperature=1.5,
+                                      top_k=16)
+        pkey = split(pkey)[0]
+    assert torch.equal(key, pkey)
+
+
+@pytest.mark.cuda
+def test_sample_kernel_rejects_unsupported_inputs(cuda):
+    logits, lengths, key = sample_inputs(cuda, 6, 8, 64)
+    kw = dict(n_seq=128, eof_token_id=1023, temperature=1.0)
+    with pytest.raises(ValueError, match="key"):
+        sample_next_token(logits, lengths, key.int(), **kw)
+    with pytest.raises(ValueError, match="float32"):
+        sample_next_token(logits.bfloat16(), lengths, key, **kw)
+    with pytest.raises(ValueError, match="logits"):
+        sample_next_token(logits.t().contiguous().t(), lengths, key, **kw)
+
+
 @pytest.mark.cuda
 def test_int4_probe_matches_plain(cuda):
     """The page's self-dot equals unpack + torch.matmul bit for bit; the
@@ -950,3 +1068,44 @@ def test_graph_second_run_replays(cuda):
     assert outs[0] == outs[1]
     assert graph_eng.stats.captures == captures == len(graphs)
     assert graph_eng._run_program.graphs == graphs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ref", "gpt2s"])
+def test_graph_sampling_burst_equals_eager(cuda, case):
+    """Sampled decoding in the graph: burst by burst, a replay leaves every
+    state byte (the key included) as an eager burst does; whole runs give
+    the same tokens; the sampling kernel launches once per round, counted
+    on the device."""
+    kw = dict(temperature=1.5, top_k=16, sample_seed=7, min_drain_slots=8)
+    graph_eng, eager_eng = graph_engines(cuda, case, **kw)
+    prompts = graph_prompts(15, 40)
+    progs = []
+    for eng in (graph_eng, eager_eng):
+        prog = eng._program(len(prompts), 32, eng._widths())
+        prog.reset()
+        load_queue(prog, prompts)
+        progs.append(prog)
+    B = graph_eng.engine_cfg.n_slots
+    for k in range(60):
+        progs[0].burst(B)
+        progs[1].burst(B)
+        assert_same_state(progs[0].st[B], progs[1].st[B], f"burst {k}")
+        if progs[0].status[0] == 0 and progs[0].status[1] == len(prompts):
+            break
+    else:
+        raise AssertionError("the queue never drained")
+    tokens = []
+    for eng in (graph_eng, eager_eng):
+        for _ in range(2):
+            store = T.ItemStorage()
+            for i, p in enumerate(prompts):
+                store.add_new_item(T.Request(i, list(p)))
+            counted = KERNELS["sample"].launches
+            eng.stats = T.BurstStats()
+            eng.run(store)
+        tokens.append([store.finished[i].tokens for i in range(len(prompts))])
+        assert KERNELS["sample"].launches - counted == eng.stats.rounds > 0
+    assert tokens[0] == tokens[1]
+    st = graph_eng.stats
+    assert st.host_syncs == 2 + -(-st.bursts // graph_eng.chunk) + 1
