@@ -40,7 +40,16 @@ Phases, one line each; any failure raises and exits non-zero:
      and 16: its raw draws equal ``random_bits`` bit for bit, its next key
      the plain split's, and its tokens and lengths the plain version's
      (a miss only at a reported near-tie of the two best perturbed scores,
-     at most one a call);
+     at most one a call); the same on its edges (sample_edges: ties made
+     by the division, all-equal rows, rows of -inf with a few finite
+     values, top_k 31, 32, 33 and V - 1 at V 1000 and 1023, top_k 1 and
+     V - 1 on rows narrower than a warp, the widths on each side of its
+     narrow/wide switch, a wide row's thread parts and whole-row select),
+     each live row taking the select it must (candidates above the
+     threshold, or the whole row); and its device time with a warp and
+     with a block per row at 1024-2048 columns ([sample-switch], the data
+     behind the launcher's switch, ops/sampling.narrow_max_v()), and on
+     all-equal rows (the whole-row select);
   4. engine parity on the card at small configs: the kernel path
      (attention_impl="grouped") against the gather oracle ("torch"),
      token for token: no ring for int4, int8 and float32 KV (reference
@@ -167,6 +176,7 @@ import torch  # noqa: E402
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+INT8_TENSOR_OPS = 1979e12
 
 # the main path, as ``python bench.py`` runs the JAX package with no flags
 MAIN = dict(n_vocab=1024, emb_dim=2048, n_seq=128, page_size=32,
@@ -202,17 +212,28 @@ STREAM_WAVE = 256
 SAMPLE_KW = dict(temperature=1.5, top_k=16, sample_seed=7)
 SAMPLE_SETTINGS = ((0.7, 0), (0.7, 16), (1.5, 0), (1.5, 16))
 GPT2_VOCAB = 50257
-# 32-bit operations of the sampling kernel for each element it draws:
-# threefry2x32 (2 initial adds, 20 rounds of add, rotate and xor, 5 key
-# injections of 2 adds, the final xor: 73), the 64-bit counter (2), the
-# uniform (shift, or, subtract, fma, max: 5), the Gumbel (2 logf and 2
-# negations, each logf counted as one operation) and the add and compare
-# of the argmax; and for each element of a live row, the divide by the
-# temperature and, under top-k, the radix select's four passes of key,
-# mask compare and count
-SAMPLE_DRAW_OPS = 73 + 2 + 5 + 4 + 2
-SAMPLE_ROW_OPS = 1
-SAMPLE_TOPK_OPS = 4 * 3
+# 32-bit operations of the sampling kernel, integer and float apart. For
+# each element it draws: threefry2x32 (2 initial adds, 20 rounds of add,
+# rotate and xor, 5 key injections of 2 adds, the final xor: 73), the
+# 64-bit counter (2) and the uniform's shift and or (2), integer; the
+# uniform's subtract, fma and max, the Gumbel's 2 logf (one operation each)
+# and 2 negations, and the argmax's add and compare, float. For each
+# element of a live row: the divide by the temperature (float) and, under
+# top-k, its select key (the +0 fold, float; sign test and flip, integer),
+# the running maximum and the threshold compare (integer)
+SAMPLE_DRAW_INT_OPS = 73 + 2 + 2
+SAMPLE_DRAW_F32_OPS = 3 + 2 + 2 + 2
+SAMPLE_ROW_F32_OPS = 1
+SAMPLE_TOPK_INT_OPS = 2 + 1 + 1
+SAMPLE_TOPK_F32_OPS = 1
+# int32 lanes of an SM on Hopper (a quarter of the 128 float32 lanes that
+# F32_FLOPS counts at two operations an FMA); the card's int32 rate is
+# INT32_LANES x SMs x the max SM clock (nvidia-smi), set in main()
+INT32_LANES = 64
+INT32_OPS_PER_S = None
+# the sampling kernel's narrow/wide sweep: widths, top_k values
+SWITCH_WIDTHS = (1024, 1536, 2048)
+SWITCH_TOP_K = (16, 50)
 
 
 T0 = time.perf_counter()
@@ -235,7 +256,7 @@ def device_ms(fn, iters: int) -> float:
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):           # a trace now and then comes back empty
+    for _ in range(6):           # a trace now and then comes back empty
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -342,11 +363,12 @@ def grouped_case(rng, dev, B, W, P, D, H, kv, in_dtype, NP=None,
     return t
 
 
-def bound_of(nbytes, ops) -> tuple:
-    """The least time in ms for ``nbytes`` of HBM traffic and ``ops`` f32
-    operations, and which of the two bounds it."""
+def bound_of(nbytes, ops, ops_per_s=F32_FLOPS) -> tuple:
+    """The least time in ms for ``nbytes`` of HBM traffic and ``ops``
+    operations at ``ops_per_s`` (float32 outside the tensor cores unless
+    given), and which of the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -979,35 +1001,61 @@ def sample_case(rng, dev, B, V, lengths=None, dead_share=0.25):
     return {"logits": logits, "lengths": lengths, "key": key}
 
 
+def int32_ops_per_s() -> float:
+    """The card's int32 rate: INT32_LANES a clock on each SM at the max SM
+    clock that nvidia-smi reports."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_LANES * sms * mhz * 1e6
+
+
 def sample_bound(t, temperature, top_k, kept) -> dict:
     """The sampling kernel's bounds in ms from this call's inputs: bytes
     (the live rows' float32 logits read once, lengths read, tokens and
-    lengths written, the keys) and 32-bit operations (SAMPLE_ROW_OPS and,
-    under top-k, SAMPLE_TOPK_OPS on every element of a live row;
-    SAMPLE_DRAW_OPS on every element it draws: ``kept``, the elements at
-    or above the top-k threshold, or the whole row) over F32_FLOPS, the
-    table's rate for the card's 32-bit lanes (it has no int32 entry)."""
+    lengths written, the keys) and 32-bit operations: on every element of a
+    live row SAMPLE_ROW_F32_OPS and, under top-k, SAMPLE_TOPK_*_OPS; on
+    every element it draws (``kept``, the elements at or above the top-k
+    threshold, or the whole row) SAMPLE_DRAW_*_OPS. The integer operations
+    run at INT32_OPS_PER_S and the float ones at F32_FLOPS, on their own
+    lanes: the operation bound is the larger of the two times.
+    ``bound_ops_f32_ms`` is all of them over F32_FLOPS, as earlier versions
+    of this script counted."""
     B, V = t["logits"].shape
     live = int((t["lengths"] > 0).sum())
     nbytes = live * V * 4 + 3 * B * 4 + 32
-    row_ops = SAMPLE_ROW_OPS + (SAMPLE_TOPK_OPS if 0 < top_k < V else 0)
-    ops = live * V * row_ops + kept * SAMPLE_DRAW_OPS
-    both = bound_of(nbytes, ops)
-    return {"bound": both, "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_ops_ms": ops / F32_FLOPS * 1e3, "live_rows": live,
+    topk = 0 < top_k < V
+    int_ops = (live * V * (SAMPLE_TOPK_INT_OPS if topk else 0)
+               + kept * SAMPLE_DRAW_INT_OPS)
+    f32_ops = (live * V * (SAMPLE_ROW_F32_OPS
+                           + (SAMPLE_TOPK_F32_OPS if topk else 0))
+               + kept * SAMPLE_DRAW_F32_OPS)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(int_ops / INT32_OPS_PER_S, f32_ops / F32_FLOPS) * 1e3
+    bound = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+             "operations")
+    return {"bound": bound, "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+            "bound_ops_f32_ms": (int_ops + f32_ops) / F32_FLOPS * 1e3,
+            "int32_ops_per_s": INT32_OPS_PER_S, "live_rows": live,
             "drawn": kept}
 
 
-def check_sample(name, t, temperature, top_k, timed):
+def check_sample(name, t, temperature, top_k, timed, want_select=None):
     """The sampling kernel against its plain version on the inputs ``t``:
     its raw draws (the kernel's debug output) equal random_bits(sub) bit for
     bit, its next key the plain split's; tokens and lengths are equal but
     for at most one row whose two best perturbed scores (the plain
     version's) lie within a relative 1e-6 of each other, where the kernel
-    took the other of the two (a near-tie, reported)."""
+    took the other of the two (a near-tie, reported). The selects the live
+    rows took are counted (``want_select``: every live row must take that
+    one)."""
     from min_llm_inference_tpu_torch.ops.random import (
         MASK32, random_bits, split)
     from min_llm_inference_tpu_torch.ops.reference import perturbed_scores
+    from min_llm_inference_tpu_torch.ops.sampling import (
+        SELECT_CANDIDATES, SELECT_WHOLE_ROW)
     from min_llm_inference_tpu_torch.ops.sampling import (
         sample_next_token as kernel, sample_next_token_plain as plain)
 
@@ -1016,7 +1064,9 @@ def check_sample(name, t, temperature, top_k, timed):
     kw = dict(n_seq=MAIN["n_seq"], eof_token_id=MAIN["n_vocab"] - 1,
               temperature=temperature, top_k=top_k)
     bits = torch.empty(B, V, dtype=torch.int32, device=logits.device)
-    tok, lens, nkey = kernel(logits, lengths, key, bits_out=bits, **kw)
+    sel = torch.empty(B, dtype=torch.int32, device=logits.device)
+    tok, lens, nkey = kernel(logits, lengths, key, bits_out=bits,
+                             select_out=sel, **kw)
     ptok, plens, pkey = plain(logits, lengths, key, **kw)
     torch.cuda.synchronize()
     sub = split(key)[1]
@@ -1047,7 +1097,13 @@ def check_sample(name, t, temperature, top_k, timed):
     live = lengths > 0
     kept = int((torch.isfinite(pert) & live[:, None]).sum())
     del pert
-    res = {"max_abs_err": 0.0, "near_ties": len(rows)}
+    live_sel = sel[live]
+    if want_select is not None and not bool((live_sel == want_select).all()):
+        raise AssertionError(f"{name}: selects {live_sel.unique().tolist()}, "
+                             f"want {want_select} on every live row")
+    res = {"max_abs_err": 0.0, "near_ties": len(rows),
+           "select_candidates": int((live_sel == SELECT_CANDIDATES).sum()),
+           "select_whole_row": int((live_sel == SELECT_WHOLE_ROW).sum())}
     if gaps:
         res["near_tie_gap"] = gaps[0]
     b = sample_bound(t, temperature, top_k, kept)
@@ -1071,6 +1127,86 @@ def sample_checks(rng, dev) -> list:
             out.append(check_sample(f"sample-V{V}-T{temperature}-k{top_k}",
                                     t, temperature, top_k, timed=True))
         del t
+    return out
+
+
+def sample_edges(rng, dev) -> list:
+    """Phase 3's untimed [sample] edge checks, 64 rows each, and the select
+    each must take: ties made by the division (T 3.0, odd top_k: the k-th
+    value is one of a merged pair), all-equal rows and rows of -inf with a
+    few finite values (the candidates overflow: the whole-row select),
+    top_k 31, 32, 33 and V - 1 at V 1000 and 1023, top_k 1 and V - 1 at V
+    7 and 31 (lanes with no column), the widths on each side of the
+    narrow/wide switch, and a wide row's thread parts (top_k 50) and
+    whole-row select (top_k 2000)."""
+    from min_llm_inference_tpu_torch.ops import sampling as tsamp
+    from min_llm_inference_tpu_torch.tools.sampling_edges import edge_logits
+
+    cand, whole = tsamp.SELECT_CANDIDATES, tsamp.SELECT_WHOLE_ROW
+    B, wide = 64, GPT2_VOCAB
+    cases = [("ties", 1024, 3.0, 3, cand), ("ties", 1024, 3.0, 15, cand),
+             ("ties", wide, 3.0, 15, cand), ("equal", 1024, 1.0, 16, whole),
+             ("equal", wide, 1.0, 16, whole), ("ninf", 1024, 1.0, 2, None),
+             ("ninf", 1024, 1.0, 16, whole), ("ninf", wide, 1.0, 16, whole)]
+    for V in (1000, 1023):
+        cases += [("normal", V, 1.5, 31, None), ("normal", V, 1.5, 32, None),
+                  ("normal", V, 1.5, 33, whole),
+                  ("normal", V, 1.5, V - 1, whole)]
+    for V in (7, 31):
+        cases += [("normal", V, 1.5, 1, None), ("normal", V, 1.5, V - 1, None)]
+    switch = tsamp.narrow_max_v()
+    cases += [("normal", switch, 1.5, 16, cand),
+              ("normal", switch + 1, 1.5, 16, cand),
+              ("normal", wide, 1.5, 50, cand),
+              ("normal", wide, 1.5, 2000, whole)]
+    out = []
+    for kind, V, temperature, top_k, want in cases:
+        t = sample_case(rng, dev, B, V)
+        if kind != "normal":
+            t["logits"] = torch.from_numpy(edge_logits(
+                kind, int(rng.integers(2**31)), B, V, temperature)).to(dev)
+        out.append(check_sample(f"sample-edge-{kind}-V{V}-T{temperature}"
+                                f"-k{top_k}", t, temperature, top_k,
+                                timed=False, want_select=want))
+    return out
+
+
+def sample_switch(rng, dev) -> dict:
+    """The sampling kernel's device time (device_ev_ms) with a warp per row
+    and with a block per row (the launcher's path forced), 1024 rows (a
+    quarter dead) at each of SWITCH_WIDTHS and SWITCH_TOP_K, T 1.5: the
+    data behind the launcher's switch at narrow_max_v() columns. Then the
+    whole-row select's cost: all-equal rows at the reference width and at
+    GPT-2's vocabulary, top_k 16."""
+    from min_llm_inference_tpu_torch.ops import sampling as tsamp
+    from min_llm_inference_tpu_torch.tools.sampling_edges import edge_logits
+
+    kw = dict(n_seq=MAIN["n_seq"], eof_token_id=MAIN["n_vocab"] - 1,
+              temperature=1.5)
+    out = {}
+    for V in SWITCH_WIDTHS:
+        t = sample_case(rng, dev, MAIN["n_slots"], V)
+        args = (t["logits"], t["lengths"], t["key"], kw["n_seq"],
+                kw["eof_token_id"], kw["temperature"])
+        for top_k in SWITCH_TOP_K:
+            ms = {}
+            for path, code in (("narrow", tsamp.PATH_NARROW),
+                               ("wide", tsamp.PATH_WIDE)):
+                ms[path] = device_ev_ms(lambda: tsamp._launch(
+                    *args, top_k, None, None, code))
+                out[f"switch_V{V}_k{top_k}_{path}_ms"] = ms[path]
+            log("sample-switch", V=V, top_k=top_k,
+                narrow_ms=f"{ms['narrow']:.6g}", wide_ms=f"{ms['wide']:.6g}",
+                narrow_max_v=tsamp.narrow_max_v())
+    for V in (MAIN["n_vocab"], GPT2_VOCAB):
+        t = sample_case(rng, dev, MAIN["n_slots"], V)
+        logits = torch.from_numpy(edge_logits(
+            "equal", 0, MAIN["n_slots"], V)).to(dev)
+        ms = device_ev_ms(lambda: tsamp.sample_next_token(
+            logits, t["lengths"], t["key"], top_k=16, **kw))
+        out[f"whole_row_V{V}_ms"] = ms
+        log("sample-switch", case=f"whole-row-equal-V{V}", top_k=16,
+            device_ev_ms=f"{ms:.6g}")
     return out
 
 
@@ -1102,12 +1238,17 @@ def check_probe(dev):
     n, P, Dk = x.shape
     D = 2 * Dk
     res = {"max_abs_err": 0.0}
-    # page 0 read once, [P, P] f32 written; P*P*D multiply-adds
+    # page 0 read once, [P, P] f32 written; P*P*D multiply-adds, on the
+    # int8 tensor cores
     timed_pair("int4-probe", res, lambda: pr.int4_page_self_dot(x),
                lambda: pr.int4_page_self_dot_plain(x),
-               bound_of(P * Dk + P * P * 4, 2 * P * P * D))
+               bound_of(P * Dk + P * P * 4, 2 * P * P * D, INT8_TENSOR_OPS))
     xf = unpack_int4(x[0], 1) * pr.SCALE
     res["library_ms"] = time_ms(lambda: torch.matmul(xf, xf.t()), 20)
+    # the library call's device time alone, beside the kernel's
+    res["library_device"] = {}
+    DEVICE_PENDING.append(("int4-probe-matmul", res["library_device"],
+                           lambda: torch.matmul(xf, xf.t())))
     # the yardstick on the kernel's footing: the device time of the unpack
     # and torch.matmul together (the plain version), beside the kernel's
     res["yardstick"] = {}
@@ -2276,6 +2417,7 @@ def main() -> int:
         return 1
     import min_llm_inference_tpu_torch as T
     from min_llm_inference_tpu_torch.ops import _build
+    from min_llm_inference_tpu_torch.ops import sampling as tsamp
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2285,9 +2427,12 @@ def main() -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     print(gpu_line, flush=True)
+    global INT32_OPS_PER_S
+    INT32_OPS_PER_S = int32_ops_per_s()
     log("device", name=f"'{torch.cuda.get_device_name(0)}'",
         count=torch.cuda.device_count(), torch=torch.__version__,
-        cuda=torch.version.cuda, tf32="off")
+        cuda=torch.version.cuda, tf32="off",
+        int32_ops_per_s=f"{INT32_OPS_PER_S:.6g}")
 
     t0 = time.perf_counter()
     items = _build.SOURCES + _build.HOST_SOURCES + tuple(
@@ -2415,7 +2560,10 @@ def main() -> int:
     probe_launches, probe_res = check_probe(dev)
     errs["int4_page_self_dot"].append(probe_res["max_abs_err"])
     sample_rand = sample_checks(rng, dev)
-    errs["sample_next_token"] += [r["max_abs_err"] for r in sample_rand]
+    sample_edge = sample_edges(rng, dev)
+    errs["sample_next_token"] += [r["max_abs_err"]
+                                  for r in (*sample_rand, *sample_edge)]
+    switch = sample_switch(rng, dev)
 
     mode_c_engine = engine_parity(T, dev)
     flat_engine = variant_parity(T, dev)
@@ -2519,18 +2667,27 @@ def main() -> int:
         "int4_page_self_dot", probe_launches, errs["int4_page_self_dot"],
         probe_res,
         yardstick_device_ms=probe_res["yardstick"]["device_ms"],
-        yardstick_device_ev_ms=probe_res["yardstick"]["device_ev_ms"]))
+        yardstick_device_ev_ms=probe_res["yardstick"]["device_ev_ms"],
+        library_device_ms=probe_res["library_device"]["device_ms"],
+        library_device_ev_ms=probe_res["library_device"]["device_ev_ms"]))
     sr = s_res["ref"]
     entries.append(kernel_entry(
         "sample_next_token", s_launches["sample_next_token"],
         errs["sample_next_token"], sr,
-        near_ties=sum(r["near_ties"] for r in (*sample_rand,
+        near_ties=sum(r["near_ties"] for r in (*sample_rand, *sample_edge,
                                                *s_res.values())),
         live_rows=sr["live_rows"], drawn=sr["drawn"],
         bound_bytes_ms=sr["bound_bytes_ms"], bound_ops_ms=sr["bound_ops_ms"],
+        bound_ops_f32_ms=sr["bound_ops_f32_ms"],
+        int32_ops_per_s=INT32_OPS_PER_S, narrow_max_v=tsamp.narrow_max_v(),
+        edge_checks=len(sample_edge),
+        edge_rows_whole_row_select=sum(r["select_whole_row"]
+                                       for r in sample_edge),
+        **switch,
         **{f"gpt2_vocab_{k}": s_res["gpt2"][k]
            for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                     "bound_bytes_ms", "bound_ops_ms", "drawn")},
+                     "bound_bytes_ms", "bound_ops_ms", "bound_ops_f32_ms",
+                     "drawn")},
         **{f"random_V{r_V}_T{T_}_k{k_}_{n}": r[n]
            for (r_V, (T_, k_)), r in zip(
                [(V_, st_) for V_ in (MAIN["n_vocab"], GPT2_VOCAB)

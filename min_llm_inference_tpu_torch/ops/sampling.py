@@ -26,34 +26,42 @@ from .random import split
 from .reference import sample_next_token as sample_with_key
 
 _SOURCE = "sample_next_token.cu"
-# static shared memory of the kernel beside the cached row, rounded up
-_STATIC_SMEM = 2048
+# select_out's codes: which select found a row's k-th value
+SELECT_NONE, SELECT_CANDIDATES, SELECT_WHOLE_ROW = 0, 1, 2
+# the launcher's path under top-k (a check option of _launch): the
+# kernel's own choice by width (narrow_max_v()), a warp per row, or a
+# block per row
+PATH_AUTO, PATH_NARROW, PATH_WIDE = 0, 1, 2
 
 
 def sample_next_token(logits, lengths, key, *, n_seq: int, eof_token_id: int,
-                      temperature: float, top_k: int = 0, bits_out=None):
+                      temperature: float, top_k: int = 0, bits_out=None,
+                      select_out=None):
     """logits: [B, V] float32 (unit inner stride); lengths: [B] i32 (0 =
     dead); key: int64 [2] (ops/random), the key carried into this round.
     Returns (tokens [B] i32, new lengths [B] i32, the next round's key):
     ``key, sub = split(key)``, then ops/reference.sample_next_token with
-    ``sub``. ``bits_out`` (CUDA only, a check path): an int32 [B, V]
+    ``sub``. Check outputs, CUDA only: ``bits_out``, an int32 [B, V]
     tensor that receives the kernel's raw draws, ``random_bits(sub, [B,
-    V])`` as int32."""
+    V])`` as int32; ``select_out``, an int32 [B] tensor that receives the
+    select each row took (SELECT_NONE for a dead row or no top-k,
+    SELECT_CANDIDATES, SELECT_WHOLE_ROW)."""
     if temperature <= 0:
         raise ValueError("sampling needs temperature > 0")
     B, V = logits.shape
     if logits.dtype != torch.float32 or tuple(lengths.shape) != (B,):
         raise ValueError("need float32 logits [B, V] and lengths [B]")
     if logits.device.type == "cpu":
-        if bits_out is not None:
-            raise ValueError("bits_out is the kernel's check output")
+        if bits_out is not None or select_out is not None:
+            raise ValueError("bits_out and select_out are the kernel's "
+                             "check outputs")
         return sample_next_token_plain(logits, lengths, key, n_seq=n_seq,
                                        eof_token_id=eof_token_id,
                                        temperature=temperature, top_k=top_k)
     if logits.device.type != "cuda":
         raise ValueError(f"unsupported device {logits.device}")
     return _launch(logits, lengths, key, n_seq, eof_token_id, temperature,
-                   top_k, bits_out)
+                   top_k, bits_out, select_out)
 
 
 # kernel launches since the last reset (launches made by the wrapper only)
@@ -77,15 +85,28 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.mli_sample_next_token.argtypes = [
-        vp, ll, vp, vp, vp, vp, vp, vp, i, i, ctypes.c_float, i, i, i, i, vp]
+        vp, ll, vp, vp, vp, vp, vp, vp, vp, i, i, ctypes.c_float, i, i, i, i,
+        vp]
     lib.mli_sample_next_token.restype = ctypes.c_int
+    lib.mli_sample_narrow_max_v.argtypes = []
+    lib.mli_sample_narrow_max_v.restype = i
     lib.mli_error_string.argtypes = [i]
     lib.mli_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def narrow_max_v() -> int:
+    """The widest row that the kernel samples with a warp per row under
+    top-k; wider rows run a block per row (builds the kernel). On an H100
+    the warp beats the block at 1024 and 2048 columns under top_k 16
+    (chip_smoke.py's [sample-switch] lines; PERF.md)."""
+    return _library().mli_sample_narrow_max_v()
+
+
 def _launch(logits, lengths, key, n_seq, eof_token_id, temperature, top_k,
-            bits_out):
+            bits_out, select_out, path=PATH_AUTO):
+    """The kernel's launch on CUDA tensors; ``path`` forces a warp or a
+    block per row under top-k, for checks that hold the two alike."""
     dev = logits.device
     B, V = logits.shape
     _build.check_rows("logits", logits, B, V, torch.float32, dev)
@@ -93,11 +114,11 @@ def _launch(logits, lengths, key, n_seq, eof_token_id, temperature, top_k,
     check_contig("key", key, (2,), torch.int64, dev)
     if bits_out is not None:
         check_contig("bits_out", bits_out, (B, V), torch.int32, dev)
+    if select_out is not None:
+        check_contig("select_out", select_out, (B,), torch.int32, dev)
     tok = torch.empty(B, dtype=torch.int32, device=dev)
     new_lengths = torch.empty(B, dtype=torch.int32, device=dev)
     next_key = torch.empty(2, dtype=torch.int64, device=dev)
-    use_topk = 0 < top_k < V
-    smem_row = int(use_topk and 4 * V + _STATIC_SMEM <= _build.MAX_SMEM)
     lib = _library()
     # ctypes rounds the divisor to float32, as the plain version's is
     with torch.cuda.device(dev):
@@ -107,8 +128,9 @@ def _launch(logits, lengths, key, n_seq, eof_token_id, temperature, top_k,
             key.data_ptr(), tok.data_ptr(), new_lengths.data_ptr(),
             next_key.data_ptr(),
             bits_out.data_ptr() if bits_out is not None else None,
+            select_out.data_ptr() if select_out is not None else None,
             B, V, max(temperature, 1e-6), int(top_k), n_seq,
-            eof_token_id, smem_row, stream,
+            eof_token_id, path, stream,
         )
     _build.check(lib, rc, "sample_next_token kernel")
     _build.count_launch(sample_next_token)

@@ -5,9 +5,11 @@ Counterpart of the JAX package's tools/int4_probe.py, which asked the same
 of Mosaic on a TPU with a Pallas kernel (``kernel``: DMA one native-int4
 page into VMEM, dequantize, self-dot). Here the kernel is
 ``csrc/int4_probe.cu``: one block copies page 0 of a ``[4, 32, 512]`` int4
-tensor into shared memory with ``cp.async``, unpacks it, multiplies by
-0.25 and writes the ``[32, 32]`` float32 product x . x^T. The plain version
-beside it unpacks and calls ``torch.matmul``.
+tensor into shared memory with one bulk copy (TMA), unpacks it to int8
+values and writes the ``[32, 32]`` product x . x^T of the values times
+0.25, from int8 tensor-core products (``mma.sync``, int32 sums: exact). The
+plain version beside it unpacks, multiplies by 0.25 and calls
+``torch.matmul``.
 
 The values are packed two per byte as the port's pools pack them
 (ops/quant.py: per head, byte c = 16*hi + lo), which holds values in
@@ -91,9 +93,10 @@ def _launch(x):
         raise ValueError("x must be [n, P, Dk] packed int4")
     n, P, Dk = x.shape
     check_contig("x", x, (n, P, Dk), torch.int8, dev)
-    if (P * Dk) % 16 or x.data_ptr() % 16:
-        raise ValueError("the page must be 16-byte aligned, a multiple of "
-                         "16 bytes (cp.async copies 16 bytes at a time)")
+    if P % 16 or Dk % 16 or x.data_ptr() % 16:
+        raise ValueError("the page must be 16-byte aligned, with P and Dk "
+                         "multiples of 16 (the bulk copy and the m16n8k32 "
+                         "tiles)")
     lib = _library()
     if lib.mli_int4_probe_smem(P, Dk) > _build.MAX_SMEM:
         raise ValueError(f"a [{P}, {2 * Dk}] page does not fit shared memory")
@@ -119,7 +122,8 @@ def probe(device=None, strict: bool = False) -> bool:
         got = int4_page_self_dot(x)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-            stages.append("cp.async page load + dequant + dot kernel ran")
+            stages.append("bulk-copy page load + unpack + tensor-core dot "
+                          "kernel ran")
         else:
             stages.append("plain version ran (the kernel runs on CUDA only)")
         want = int4_page_self_dot_plain(x)

@@ -45,11 +45,17 @@ from min_llm_inference_tpu_torch.ops.ring_flush import (
     ring_flush,
     ring_flush_plain,
 )
+from min_llm_inference_tpu_torch.ops import sampling as tsamp
+from min_llm_inference_tpu_torch.ops.quant import pack_int4_rows
 from min_llm_inference_tpu_torch.ops.sampling import (
+    SELECT_CANDIDATES,
+    SELECT_NONE,
+    SELECT_WHOLE_ROW,
     sample_next_token,
     sample_next_token_plain,
 )
 from min_llm_inference_tpu_torch.tools import int4_probe
+from min_llm_inference_tpu_torch.tools.sampling_edges import edge_logits
 import min_llm_inference_tpu_torch as T
 from min_llm_inference_tpu_torch.runtime import autonomous as tauto
 
@@ -732,21 +738,31 @@ def test_grouped_all_dead(cuda, kind):
 
 
 def check_sample(logits, lengths, key, temperature, top_k, n_seq=128,
-                 eof=1023):
+                 eof=1023, want_select=None, path=tsamp.PATH_AUTO):
     """The sampling kernel against its plain version on the same inputs:
     its raw draws equal random_bits(sub) bit for bit and its next key the
     plain split's; tokens and lengths are equal, but for at most one row
     whose two best perturbed scores (the plain version's) lie within 1e-6
     of each other, relatively, where the kernel took the other of the
-    two."""
+    two. ``want_select``: the select every live row must take; ``path``:
+    the launcher's path under top-k (the wrapper's own choice, or a warp
+    or a block per row forced)."""
     B, V = logits.shape
     bits = torch.empty(B, V, dtype=torch.int32, device=logits.device)
+    sel = torch.empty(B, dtype=torch.int32, device=logits.device)
     before = sample_next_token.launches
     kw = dict(n_seq=n_seq, eof_token_id=eof, temperature=temperature,
               top_k=top_k)
-    tok, lens, nkey = sample_next_token(logits, lengths, key, bits_out=bits,
-                                        **kw)
+    if path == tsamp.PATH_AUTO:
+        tok, lens, nkey = sample_next_token(logits, lengths, key,
+                                            bits_out=bits, select_out=sel,
+                                            **kw)
+    else:
+        tok, lens, nkey = tsamp._launch(logits, lengths, key, n_seq, eof,
+                                        temperature, top_k, bits, sel, path)
     assert sample_next_token.launches == before + 1
+    if want_select is not None:
+        assert (sel[lengths > 0] == want_select).all(), sel.unique()
     ptok, plens, pkey = sample_next_token_plain(logits, lengths, key, **kw)
     torch.cuda.synchronize()
     sub = split(key)[1]
@@ -780,9 +796,8 @@ def sample_inputs(dev, seed, B, V, dead_share=0.25):
                                                (1.5, 0), (1.5, 16),
                                                (1.0, 1), (1.0, 1000)])
 def test_sample_kernel_matches_plain(cuda, V, temperature, top_k):
-    """The reference path's width (1024), gpt2s' (50257), and one past the
-    shared-memory row (60000: top-k re-reads the row from global memory);
-    1024 rows (256 at the widest), a quarter of them dead."""
+    """The reference path's width (1024), gpt2s' (50257) and a wider one
+    (60000); 1024 rows (256 at the widest), a quarter of them dead."""
     B = 256 if V > 50257 else 1024
     logits, lengths, key = sample_inputs(cuda, V + top_k, B, V)
     tok, lens = check_sample(logits, lengths, key, temperature, top_k)
@@ -813,6 +828,89 @@ def test_sample_kernel_edges(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,V,temperature,top_k,want", [
+    ("ties", 1024, 3.0, 3, SELECT_CANDIDATES),
+    ("ties", 1024, 3.0, 15, SELECT_CANDIDATES),
+    ("ties", 50257, 3.0, 15, SELECT_CANDIDATES),
+    ("equal", 1024, 1.0, 16, SELECT_WHOLE_ROW),
+    ("equal", 50257, 1.0, 16, SELECT_WHOLE_ROW),
+    ("equal", 60000, 1.0, 16, SELECT_WHOLE_ROW),
+    ("ninf", 1024, 1.0, 2, None),
+    ("ninf", 1024, 1.0, 16, SELECT_WHOLE_ROW),
+    ("ninf", 50257, 1.0, 16, SELECT_WHOLE_ROW)])
+def test_sample_kernel_edge_inputs(cuda, kind, V, temperature, top_k, want):
+    """Ties made by the division (the k-th value on a merged pair: both
+    stay in), all-equal rows and rows of -inf with 3 finite values: the
+    last two overflow the candidates and reach the whole-row select, in a
+    warp (1024) and in a block (50257, 60000)."""
+    B = 64
+    logits = torch.from_numpy(edge_logits(kind, V + top_k, B, V,
+                                          temperature)).to(cuda)
+    _, lengths, key = sample_inputs(cuda, top_k, B, 8)
+    tok, _ = check_sample(logits, lengths, key, temperature, top_k,
+                          want_select=want)
+    live = lengths > 0
+    assert torch.isfinite(logits[live, tok[live].long()]).all()
+
+
+# (V, top_k): top_k on each side of a warp's 32 lanes and V - 1 at widths
+# not a multiple of 32; top_k 1 and V - 1 on rows narrower than a warp
+# (lanes with no column), and on one column (no top-k)
+AWKWARD_TOP_K = [pytest.param(V, k, id=f"{k}-{V}")
+                 for k in (31, 32, 33, "V-1") for V in (1000, 1023)] + [
+    pytest.param(V, k, id=f"{k}-{V}") for V in (1, 7, 31)
+    for k in (1, "V-1")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,top_k", AWKWARD_TOP_K)
+def test_sample_kernel_awkward_top_k(cuda, V, top_k):
+    """Awkward top_k values and widths (AWKWARD_TOP_K): above 32 a warp
+    takes the whole-row select; below 32 columns some lanes hold none."""
+    k = V - 1 if top_k == "V-1" else top_k
+    logits, lengths, key = sample_inputs(cuda, V + k, 256, V)
+    check_sample(logits, lengths, key, 1.5, k,
+                 want_select=SELECT_WHOLE_ROW if k > 32 else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", [0, 1])
+@pytest.mark.parametrize("top_k", [0, 16])
+def test_sample_kernel_switch_sides(cuda, side, top_k):
+    """The widest row that runs a warp per row and the narrowest that runs
+    a block per row."""
+    V = tsamp.narrow_max_v() + side
+    logits, lengths, key = sample_inputs(cuda, V + top_k, 512, V)
+    check_sample(logits, lengths, key, 1.5, top_k,
+                 want_select=SELECT_CANDIDATES if top_k else SELECT_NONE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["narrow", "wide"])
+@pytest.mark.parametrize("V", [1024, 1536, 2048])
+@pytest.mark.parametrize("top_k", [16, 50])
+def test_sample_kernel_both_paths(cuda, path, V, top_k):
+    """A warp per row and a block per row at the same widths: above 32 the
+    warp takes the whole-row select, the block its 512 thread parts."""
+    logits, lengths, key = sample_inputs(cuda, V + top_k, 512, V)
+    want = (SELECT_WHOLE_ROW if path == "narrow" and top_k > 32
+            else SELECT_CANDIDATES)
+    check_sample(logits, lengths, key, 0.7, top_k, want_select=want,
+                 path=tsamp.PATH_NARROW if path == "narrow"
+                 else tsamp.PATH_WIDE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k,want", [(50, SELECT_CANDIDATES),
+                                        (2000, SELECT_WHOLE_ROW)])
+def test_sample_kernel_wide_selects(cuda, top_k, want):
+    """GPT-2's vocabulary: top_k 50 takes the thread parts' threshold,
+    top_k 2000 (more than the 512 parts) the whole-row select."""
+    logits, lengths, key = sample_inputs(cuda, top_k, 128, 50257)
+    check_sample(logits, lengths, key, 1.0, top_k, want_select=want)
+
+
+@pytest.mark.cuda
 def test_sample_kernel_chain_of_rounds(cuda):
     """Round after round the kernel's next key is the plain split's, so a
     burst's draws follow JAX's carry."""
@@ -836,6 +934,30 @@ def test_sample_kernel_rejects_unsupported_inputs(cuda):
         sample_next_token(logits.bfloat16(), lengths, key, **kw)
     with pytest.raises(ValueError, match="logits"):
         sample_next_token(logits.t().contiguous().t(), lengths, key, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", ["seed0", "seed1", "seed2", "plus7",
+                                  "minus7", "mixed7"])
+def test_int4_probe_pages(cuda, page):
+    """Seeds, and pages at the ends of the pools' range (every value +7,
+    -7, or +-7 with random signs: the largest sums), equal to the plain
+    version bit for bit."""
+    if page.startswith("seed"):
+        x = int4_probe.make_pages(int(page[4:]))
+    else:
+        sign = {"plus7": 1, "minus7": -1}.get(page)
+        if sign is None:
+            sign = 2 * np.random.default_rng(5).integers(
+                0, 2, int4_probe.SHAPE) - 1
+        vals = np.broadcast_to(7 * np.asarray(sign), int4_probe.SHAPE)
+        x = pack_int4_rows(torch.from_numpy(vals.astype(np.int8)), 1)
+    x = x.to(cuda)
+    got = int4_probe.int4_page_self_dot(x)
+    want = int4_probe.int4_page_self_dot_plain(x)
+    assert torch.equal(got, want)
+    if page != "mixed7" and not page.startswith("seed"):
+        assert torch.all(want == 512 * 49 / 16)
 
 
 @pytest.mark.cuda

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from min_llm_inference_tpu_torch.ops.quant import unpack_int4
+from min_llm_inference_tpu_torch.ops.quant import pack_int4_rows, unpack_int4
 from min_llm_inference_tpu_torch.tools import int4_probe
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -63,6 +63,28 @@ def test_probe_plain_matches_jax_kernel(seed):
     got = int4_probe.int4_page_self_dot(x)
     assert int4_probe.int4_page_self_dot.launches == before  # plain on CPU
     np.testing.assert_array_equal(got.numpy(), run_jax_kernel(values))
+
+
+def extreme_values(kind):
+    """int4 values of the probe's SHAPE at the ends of the pools' range:
+    every value +7, every value -7, or +-7 with random signs (the largest
+    sums in size, positive on the diagonal)."""
+    if kind == "mixed7":
+        signs = np.random.default_rng(5).integers(0, 2, int4_probe.SHAPE)
+        return (7 * (2 * signs - 1)).astype(np.int8)
+    return np.full(int4_probe.SHAPE, 7 if kind == "plus7" else -7, np.int8)
+
+
+@pytest.mark.parametrize("kind", ["plus7", "minus7", "mixed7"])
+def test_probe_plain_matches_jax_kernel_at_the_range_ends(kind):
+    """Pages of +-7 only: sums of 512 products of 49/16 (1568 in size) are
+    still exact in float32, in both versions."""
+    values = extreme_values(kind)
+    x = pack_int4_rows(torch.from_numpy(values), 1)
+    got = int4_probe.int4_page_self_dot(x)
+    want = run_jax_kernel(values)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert np.abs(want).max() == 512 * 49 / 16
 
 
 def test_probe_packs_as_the_pools():

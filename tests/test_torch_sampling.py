@@ -35,6 +35,7 @@ import min_llm_inference_tpu_torch as T
 from min_llm_inference_tpu_torch.ops import random as trand
 from min_llm_inference_tpu_torch.ops import reference as tref
 from min_llm_inference_tpu_torch.ops import sampling as tsamp
+from min_llm_inference_tpu_torch.tools.sampling_edges import edge_logits
 
 torch.set_num_threads(1)
 
@@ -101,6 +102,60 @@ def test_top_k_keeps_ties_at_the_threshold():
                                    tkey(key), 1.0, 2)
     np.testing.assert_array_equal(gt.numpy(), np.asarray(wt))
     assert set(gt.tolist()) == {2, 5, 6}
+
+
+def assert_plain_matches_jax(logits, lengths, key, temperature, top_k):
+    """The port's plain sampler gives JAX's tokens and lengths on these
+    inputs, whose two best perturbed scores are no near-tie."""
+    assert_no_near_tie(logits, key, temperature, top_k)
+    wt, wl = jr.sample_next_token(jnp.asarray(logits), jnp.asarray(lengths),
+                                  12, 5, key, temperature, top_k)
+    gt, gl = tref.sample_next_token(torch.from_numpy(logits),
+                                    torch.from_numpy(lengths), 12, 5,
+                                    tkey(key), temperature, top_k)
+    np.testing.assert_array_equal(gt.numpy(), np.asarray(wt))
+    np.testing.assert_array_equal(gl.numpy(), np.asarray(wl))
+    return gt
+
+
+@pytest.mark.parametrize("kind,temperature,top_k", [
+    ("ties", 3.0, 3), ("ties", 3.0, 15), ("equal", 1.0, 0),
+    ("equal", 1.0, 16), ("ninf", 1.0, 0), ("ninf", 1.0, 2),
+    ("ninf", 1.0, 16)])
+def test_sample_edges_match_jax(kind, temperature, top_k):
+    """Edges of the top-k select: pairs one ulp apart that the division by
+    T = 3 merges (an odd top_k puts the k-th value on a merged pair, whose
+    partner stays in: one more kept element than top_k, where a filter on
+    the raw logits would keep top_k), all-equal rows (every element kept),
+    rows of -inf with 3 finite values (the k-th value -inf for top_k 16)."""
+    B, V = 16, 1024
+    logits = edge_logits(kind, 11 + top_k, B, V, temperature)
+    lengths = op_inputs(3, B, V)[1]
+    key = jax.random.PRNGKey(top_k + 3)
+    if kind == "ties":
+        scaled = jnp.asarray(logits) / jnp.float32(temperature)
+        kth = jax.lax.top_k(scaled, top_k)[0][:, -1:]
+        assert (np.asarray((scaled >= kth).sum(axis=-1)) == top_k + 1).all()
+        raw_kth = np.sort(logits, axis=-1)[:, -top_k][:, None]
+        assert ((logits >= raw_kth).sum(axis=-1) == top_k).all()
+    tok = assert_plain_matches_jax(logits, lengths, key, temperature, top_k)
+    live = lengths > 0
+    assert np.isfinite(logits[live, tok.numpy()[live]]).all()
+
+
+# (V, top_k): top_k on each side of a warp's 32 lanes and V - 1 at widths
+# not a multiple of 32; top_k 1 and V - 1 on rows narrower than a warp
+AWKWARD_TOP_K = [pytest.param(V, k, id=f"{k}-{V}")
+                 for k in (31, 32, 33, "V-1") for V in (1000, 1023)] + [
+    pytest.param(V, k, id=f"{k}-{V}") for V in (7, 31) for k in (1, "V-1")]
+
+
+@pytest.mark.parametrize("V,top_k", AWKWARD_TOP_K)
+def test_awkward_top_k_match_jax(V, top_k):
+    """Awkward top_k values and widths (AWKWARD_TOP_K)."""
+    k = V - 1 if top_k == "V-1" else top_k
+    logits, lengths = op_inputs(V + k, 16, V)
+    assert_plain_matches_jax(logits, lengths, jax.random.PRNGKey(k), 1.5, k)
 
 
 @pytest.mark.parametrize("top_k", [0, 16])
