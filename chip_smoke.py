@@ -140,7 +140,19 @@ Phases, one line each; any failure raises and exits non-zero:
      on the card and served by phase 6, must have the sha256
      (models.params.params_checksum) of JAX's init_params(PRNGKey(0), ...)
      (GPT2S_INIT_SHA256, recomputed from the JAX package on the CPU by
-     tests/test_torch_random.py).
+     tests/test_torch_random.py);
+ 14. the mesh engines (parallel/), after every timed phase, their ranks
+     in processes of their own (parallel/launch.run_ranks): [mesh-ref]
+     ShardedAutonomousEngine on phase 5's path at world size 1 (NCCL) and
+     dp = 2 and 4 on the one card (gloo, share_device; tp = 1, so every
+     rank's burst is a CUDA graph), tokens equal to phase 5's timed run;
+     [mesh-tp] the gpt2s widths in float32 at tp = 2 and dp = 2 x tp = 2
+     (gloo on the one card, eager bursts) against the single-chip engine
+     on 256 requests (a differing token must be a near-tie); [mesh-nccl]
+     the same across two cards under NCCL where present; [mesh-dryrun]
+     ``python -m min_llm_inference_tpu_torch.dryrun 4``. Each mesh line
+     has its walls, syncs per burst, graph or eager, and the launches of
+     its ranks, each rank's held against its own stats.
 With --profile, one more run of each full-width path under torch.profiler
 once all ten phases have run ([profile] lines, device time by kernel in
 DIR/<path>_kernels.txt).
@@ -158,6 +170,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import os
 import shutil
@@ -234,6 +247,15 @@ INT32_OPS_PER_S = None
 # the sampling kernel's narrow/wide sweep: widths, top_k values
 SWITCH_WIDTHS = (1024, 1536, 2048)
 SWITCH_TOP_K = (16, 50)
+# the mesh stage: [mesh-tp]'s request count (a cut of depth: the gpt2s
+# path serves 2048), and the near-tie rule of a request that differs
+# there: its first differing token's top-2 gap in a plain float32 forward
+# below NEAR_TIE x the largest logit change that int8 KV pages make at
+# that position, and at most MESH_TP_MAX_DIFFERING such requests (sound
+# runs and a planted fault of the page-scale max: PERF.md, PR 10)
+MESH_TP_REQUESTS = 256
+NEAR_TIE = 1.0
+MESH_TP_MAX_DIFFERING = 8
 
 
 T0 = time.perf_counter()
@@ -1698,6 +1720,30 @@ def ref_params(T, dev):
         bench_params(np.random.default_rng(0), V, D, S, V - 1), model, dev)
 
 
+def ref_engine(**cfg_kw) -> tuple:
+    """Phase 5's engine config (under the options ``cfg_kw``) and engine
+    options, as dicts."""
+    cfg = dict(n_slots=MAIN["n_slots"], n_pages=MAIN["n_pages"],
+               n_forward_rounds=16, page_size=MAIN["page_size"],
+               init_num_pages=2, max_prefill_batch=128, subbursts=2)
+    cfg.update(cfg_kw)
+    return cfg, dict(max_new_per_burst=512, bursts_per_chunk=24,
+                     request_capacity=MAIN["requests"])
+
+
+def gpt2s_engine(**cfg_kw) -> dict:
+    """Phase 6's engine config (under the options ``cfg_kw``), as a
+    dict."""
+    g = GPT2S
+    cfg = dict(n_slots=g["n_slots"], n_pages=g["n_pages"],
+               page_size=g["page_size"], n_forward_rounds=16,
+               init_num_pages=2, kv_dtype="int8", max_prefill_batch=128,
+               decode_ring=True, attn_dgrid=True, sort_admits=True,
+               subbursts=1, burst_flush=True)
+    cfg.update(cfg_kw)
+    return cfg
+
+
 def ref_model_run(T, dev, label, dot_dir, params=None, engine_extra=None,
                   **cfg_kw):
     """The reference-parity model, request stream and engine options of
@@ -1706,14 +1752,11 @@ def ref_model_run(T, dev, label, dot_dir, params=None, engine_extra=None,
     run(n, seed, count_syncs, capture), the warm run's (host syncs,
     bursts)), after the warm run's sync check."""
     model = ref_model(T)
-    cfg = T.EngineConfig(**{**dict(
-        n_slots=MAIN["n_slots"], n_pages=MAIN["n_pages"],
-        n_forward_rounds=16, page_size=MAIN["page_size"], init_num_pages=2,
-        max_prefill_batch=128, subbursts=2), **cfg_kw})
+    cfg_d, engine_kw = ref_engine(**cfg_kw)
+    cfg = T.EngineConfig(**cfg_d)
     if params is None:
         params = ref_params(T, dev)
-    engine_kw = dict(max_new_per_burst=512, bursts_per_chunk=24,
-                     request_capacity=MAIN["requests"], **(engine_extra or {}))
+    engine_kw.update(engine_extra or {})
     run = auto_runner(T, dev, params, model, cfg, engine_kw, dot_dir)
     warm = warm_and_check_syncs(run, label)
     return model, cfg, run, warm
@@ -1793,12 +1836,7 @@ def gpt2s_path(T, dev, gpu_line, dot_dir, profile_dir=None):
     V, S, L = g["n_vocab"], g["n_seq"], g["n_layers"]
     n_req = g["requests"]
     model = T.ModelConfig(**GPT2S_MODEL)
-    cfg = T.EngineConfig(n_slots=g["n_slots"], n_pages=g["n_pages"],
-                         page_size=g["page_size"], n_forward_rounds=16,
-                         init_num_pages=2, kv_dtype="int8",
-                         max_prefill_batch=128, decode_ring=True,
-                         attn_dgrid=True, sort_admits=True, subbursts=1,
-                         burst_flush=True)
+    cfg = T.EngineConfig(**gpt2s_engine())
     from min_llm_inference_tpu_torch.models.params import params_checksum
 
     # bench.py's own weights, made on the card (phase 13)
@@ -2363,6 +2401,288 @@ def profile_path(run, out_dir, wall_unprofiled, label):
                      for us, k, n in rows[:8]))
 
 
+# ---------------------------------------------------------------- mesh
+
+
+def mesh_launch_want(label, r, n_layers):
+    """The launches a mesh rank's run must show, from its stats."""
+    st = r["stats"]
+    if label == "ref":
+        return {"paged_decode_attention_grouped": st["rounds"] * n_layers}
+    return {"dgrid_paged_partial": st["rounds"] * n_layers,
+            "ring_flush": (st["bursts"] - st["skipped"]) * n_layers,
+            "prefill_quant_scatter": st["prefills"] * n_layers}
+
+
+def check_mesh_ranks(label, mesh, ranks, want_tokens, n_layers,
+                     difference=None):
+    """Every rank holds every request; tokens equal ``want_tokens`` (with
+    ``difference(rid, got)``: a request that differs on rank 0 is measured
+    by it, not refused here); each rank's launches match its stats (no
+    other kernel launched). Returns the launches summed over the ranks and
+    rank 0's differences."""
+    diffs = []
+    for r in ranks:
+        if len(r["tokens"]) != len(want_tokens):
+            raise AssertionError(f"{label} {mesh}: rank {r['rank']} holds "
+                                 f"{len(r['tokens'])}/{len(want_tokens)}")
+        for rid, toks in want_tokens.items():
+            if r["tokens"][rid] != toks:
+                if difference is None:
+                    raise AssertionError(f"{label} {mesh}: request {rid} "
+                                         f"differs on rank {r['rank']}")
+                if r["rank"] == 0:
+                    diffs.append(difference(rid, r["tokens"][rid]))
+        need = mesh_launch_want(label, r, n_layers)
+        want = {k: 0 for k in r["launches"]}
+        want.update(need)
+        if r["launches"] != want or 0 in need.values():
+            raise AssertionError(f"{label} {mesh}: rank {r['rank']} "
+                                 f"launches {r['launches']}, expected {want}")
+    total = collections.Counter()
+    for r in ranks:
+        total.update(r["launches"])
+    return dict(total), diffs
+
+
+def mesh_log(label, mesh, ranks, launches, gpu_line, **extra):
+    r0 = ranks[0]
+    st = r0["stats"]
+    log(f"mesh-{label}", mesh=mesh, graphed=r0["graphed"],
+        wall_s=";".join(f"{w:.4f}" for w in r0["walls"]),
+        slowest_rank_wall_s=f"{max(r['walls'][-1] for r in ranks):.4f}",
+        bursts=st["bursts"], skipped=st["skipped"], rounds=st["rounds"],
+        host_syncs_per_burst=f"{st['host_syncs'] / st['bursts']:.3f}",
+        launches=",".join(f"{k}:{v}" for k, v in launches.items() if v),
+        gpu=f"'{gpu_line}'", **extra)
+
+
+def plain_logits(T, params, model, tokens, page_size=None):
+    """The f32 logits after ``tokens`` by a plain full-sequence forward of
+    the model (the near-tie check of [mesh-tp]). With ``page_size`` every
+    layer's K and V go through the int8 page quantization first (each
+    page's scale from its row 0, as the engines set it)."""
+    from min_llm_inference_tpu_torch.models import model as mm
+    from min_llm_inference_tpu_torch.ops.quant import (
+        INT8_MAX, PAGE_SCALE_HEADROOM, inv_scale, quantize_against)
+    from min_llm_inference_tpu_torch.ops.reference import (
+        feed_forward, tied_logits, token_pos_embed)
+
+    def int8_pages(x):
+        L = x.shape[1]
+        rows0 = x[0, ::page_size].float()
+        s = rows0.abs().amax(-1) * float(
+            np.float32(PAGE_SCALE_HEADROOM / INT8_MAX))
+        s = s.repeat_interleave(page_size)[:L]
+        q = quantize_against(x[0], inv_scale(s)[:, None], INT8_MAX)
+        return (q.float() * s[:, None])[None].to(x.dtype)
+
+    dev = params["wte"].device
+    t = torch.tensor([tokens], dtype=torch.int32, device=dev)
+    pos = torch.arange(len(tokens), dtype=torch.int32, device=dev)[None]
+    h = token_pos_embed(t, pos, params["wte"], params["wpe"])
+    lens = torch.tensor([len(tokens)], dtype=torch.int32, device=dev)
+    for layer in params["layers"]:
+        x = mm.layer_attn_input(layer, model, h)
+        q, k, v = (feed_forward(x, layer[n]) for n in ("wq", "wk", "wv"))
+        if page_size:
+            k, v = int8_pages(k), int8_pages(v)
+        a = mm.causal_masked_attention(q, k, v, lens, model.n_heads)
+        h = mm.layer_post(layer, model, h, a)
+    return tied_logits(h[0, -1:], params["wte"])[0]
+
+
+def mesh_tp_setup(T, dev):
+    """[mesh-tp]'s case: the gpt2s path's model and engine (phase 6) in
+    float32 with init_params(0) weights, without the drain downshift (the
+    JAX mesh engine has none), MESH_TP_REQUESTS requests, and the
+    single-chip engine's tokens on them (the oracle)."""
+    model_d = dict(GPT2S_MODEL, dtype="float32")
+    cfg = gpt2s_engine()
+    kw = dict(max_new_per_burst=512, bursts_per_chunk=6,
+              request_capacity=MESH_TP_REQUESTS)
+    model = T.ModelConfig(**model_d)
+    params = T.init_params(0, model, device=dev)
+    eng, store, wall = drive(T, dev, params, model, T.EngineConfig(**cfg),
+                             MESH_TP_REQUESTS, 3, kw)
+    log("mesh-tp-single", requests=MESH_TP_REQUESTS, wall_s=f"{wall:.4f}",
+        bursts=eng.stats.bursts, note="single-chip oracle, float32 gpt2s")
+    return dict(model_d=model_d, cfg=cfg, kw=kw, model=model, params=params,
+                prompts=make_prompts(MESH_TP_REQUESTS, 3, model.n_vocab),
+                want=tokens_of(store))
+
+
+def tp_call(case, tp):
+    """A [mesh-tp] rank's call: the case at ``tp`` (engine_run times its
+    all-reduces)."""
+    return ("engine_run", dict(
+        kind="auto", model=case["model_d"], engine=case["cfg"],
+        recipe=("init", 0, 0.0), prompts=case["prompts"], tp=tp,
+        attention="grouped", runs=1, engine_kw=case["kw"]))
+
+
+def tp_difference(T, case, rid, got):
+    """A request that differs from the single-chip tokens: its first
+    differing token's top-2 gap in the plain f32 logits, and the logit
+    noise int8 KV makes there (the largest change of a logit when K and V
+    go through the page quantization). Returns (gap, noise)."""
+    want = case["want"][rid]
+    j = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    f32 = plain_logits(T, case["params"], case["model"], want[:j])
+    i8 = plain_logits(T, case["params"], case["model"], want[:j],
+                      case["cfg"]["page_size"])
+    top = torch.topk(f32, 2)
+    gap = float(top.values[0] - top.values[1])
+    noise = float((i8 - f32).abs().max())
+    log("mesh-tp-tie", request=rid, token=j, tokens=f"{want[j]}->{got[j]}",
+        top2=",".join(str(int(x)) for x in top.indices), gap=f"{gap:.4g}",
+        int8_kv_noise=f"{noise:.4g}", gap_over_noise=f"{gap / noise:.3f}")
+    return gap, noise
+
+
+def collective_fields(r) -> dict:
+    """A tp rank's timed all-reduces (workers._time_collectives) as log
+    fields: by op, calls, the wait for the rank's device work, the reduce,
+    and calls x the fastest reduce (the reduce's own cost, without the
+    wait for the peer); ``rest_s``: the wall's remainder, the rank's host
+    work (eager dispatch, scheduling)."""
+    by_op = collections.defaultdict(lambda: [0, 0.0, 0.0, 0.0])
+    for op, shape, calls, wait, red, fastest in r["collectives"]:
+        t = by_op[op]
+        t[0] += calls
+        t[1] += wait
+        t[2] += red
+        t[3] += calls * fastest
+    wait = sum(t[1] for t in by_op.values())
+    red = sum(t[2] for t in by_op.values())
+    return dict(
+        allreduce=";".join(
+            f"{op}:{c}calls/wait{w:.3f}s/reduce{x:.3f}s/fastest{f:.3f}s"
+            for op, (c, w, x, f) in sorted(by_op.items())),
+        device_wait_s=f"{wait:.3f}", reduce_s=f"{red:.3f}",
+        rest_s=f"{r['walls'][-1] - wait - red:.3f}")
+
+
+def check_tp(T, case, mesh, ranks, gpu_line, label="tp"):
+    """[mesh-tp]'s verdict on one mesh: each request that differs from
+    the single-chip engine must be a near-tie (gap below NEAR_TIE x the
+    int8 KV noise), and at most MESH_TP_MAX_DIFFERING may differ. Logs the
+    mesh line (with rank 0's timed all-reduces) before it raises. Returns
+    the launches."""
+    model = case["model"]
+    got, diffs = check_mesh_ranks(
+        "tp", mesh, ranks, case["want"], model.n_layers,
+        lambda rid, toks: tp_difference(T, case, rid, toks))
+    ratios = [g / n for g, n in diffs]
+    mesh_log(label, mesh, ranks, got, gpu_line, tokens="mesh vs single-chip",
+             differing=len(diffs),
+             max_gap_over_noise=f"{max(ratios):.3f}" if ratios else "-",
+             requests=MESH_TP_REQUESTS,
+             cut=f"requests {MESH_TP_REQUESTS} of {GPT2S['requests']}",
+             **collective_fields(ranks[0]))
+    far = [r for r in ratios if not r < NEAR_TIE]
+    if far or len(diffs) > MESH_TP_MAX_DIFFERING:
+        raise AssertionError(
+            f"mesh-tp {mesh}: {len(diffs)} requests differ (at most "
+            f"{MESH_TP_MAX_DIFFERING}), {len(far)} of them at a top-2 gap "
+            f"not below {NEAR_TIE} x the int8 KV noise")
+    return got
+
+
+def mesh_tp_only(T, dev, gpu_line):
+    """``--only mesh-tp``: [mesh-tp] alone (tp = 2, then dp = 2 x tp = 2,
+    ranks on the one card under gloo)."""
+    from min_llm_inference_tpu_torch.parallel import run_ranks, workers
+
+    case = mesh_tp_setup(T, dev)
+    for world, mesh in ((2, "tp2 gloo"), (4, "dp2xtp2 gloo")):
+        results = run_ranks(workers.run_cases, world, ([tp_call(case, 2)],),
+                            share_device=True, timeout=600)
+        check_tp(T, case, mesh, [r[0] for r in results], gpu_line)
+
+
+def mesh_stage(T, dev, gpu_line, ref_store):
+    """Phase 14: the mesh engines (parallel/), their ranks spawned by
+    parallel/launch.run_ranks after every timed phase (the libraries built
+    in phase 2). [mesh-ref]: ShardedAutonomousEngine on the main path
+    (phase 5's model, weights, engine and 2048 requests) at world size 1
+    (NCCL) and dp = 2, 4 on the one card (gloo, share_device; tp = 1, so
+    each rank's burst is a CUDA graph), twice each (capture, then replay),
+    token for token against phase 5's timed run. [mesh-tp]: the gpt2s
+    widths in float32 at tp = 2 and dp = 2 x tp = 2 (ranks on the card
+    under gloo, eager bursts) against the single-chip engine on the same
+    256 requests (check_tp: near-ties only, at most
+    MESH_TP_MAX_DIFFERING). [mesh-nccl]: the tp check across cards
+    under NCCL where there are two, else a line that says why not.
+    [mesh-dryrun]: the package's dryrun at N = 4. Returns the launches of
+    every mesh run by kernel name."""
+    from min_llm_inference_tpu_torch.dryrun import dryrun
+    from min_llm_inference_tpu_torch.parallel import run_ranks, workers
+
+    rmodel = ref_model(T)
+    # the main path's engine (phase 5)
+    ref_cfg, ref_kw = ref_engine(kv_dtype="int4", decode_ring=False)
+    V = rmodel.n_vocab
+    ref_prompts = make_prompts(MAIN["requests"], 2, V)
+    ref_tree = bench_params(np.random.default_rng(0), V, rmodel.emb_dim,
+                            rmodel.n_seq, V - 1)
+    ref_want = tokens_of(ref_store)
+    ref_call = ("engine_run", dict(
+        kind="auto", model=dataclasses.asdict(rmodel), engine=ref_cfg,
+        recipe=("numpy", ref_tree), prompts=ref_prompts, tp=1,
+        attention="grouped", runs=2, engine_kw=ref_kw))
+    case = mesh_tp_setup(T, dev)
+
+    launches = collections.Counter()
+    # world size 1 under NCCL; then dp 2 and 4 (with the tp meshes of the
+    # same world size) on the one card under gloo
+    plan = [(1, False, [("ref", "dp1 nccl", ref_call)]),
+            (2, True, [("ref", "dp2 gloo", ref_call),
+                       ("tp", "tp2 gloo", tp_call(case, 2))]),
+            (4, True, [("ref", "dp4 gloo", ref_call),
+                       ("tp", "dp2xtp2 gloo", tp_call(case, 2))])]
+    for world, share, runs in plan:
+        t0 = time.perf_counter()
+        results = run_ranks(workers.run_cases, world,
+                            ([c for *_, c in runs],), share_device=share,
+                            timeout=600)
+        spawn_s = time.perf_counter() - t0
+        for k, (label, mesh, _) in enumerate(runs):
+            ranks = [r[k] for r in results]
+            if label == "ref":
+                got, _ = check_mesh_ranks("ref", mesh, ranks, ref_want, 1)
+                mesh_log("ref", mesh, ranks, got, gpu_line,
+                         tokens="mesh == main", spawn_s=f"{spawn_s:.1f}")
+            else:
+                got = check_tp(T, case, mesh, ranks, gpu_line)
+            launches.update(got)
+    if torch.cuda.device_count() >= 2:
+        results = run_ranks(workers.run_cases, 2, ([tp_call(case, 2)],),
+                            timeout=600)
+        launches.update(check_tp(T, case, "tp2 nccl",
+                                 [r[0] for r in results], gpu_line,
+                                 label="nccl"))
+    else:
+        log("mesh-nccl", ran="no",
+            reason=f"{torch.cuda.device_count()} card: NCCL across cards "
+                   "needs two")
+    t0 = time.perf_counter()
+    line, results = dryrun(4, "cuda", timeout=600)
+    got = collections.Counter()
+    for rank in results:
+        for r in rank:
+            got.update(r["launches"])
+    for name in ("paged_decode_attention", "paged_decode_attention_grouped",
+                 "ring_flush", "prefill_quant_scatter"):
+        if not got[name]:
+            raise AssertionError(f"mesh-dryrun: {name} never launched")
+    log("mesh-dryrun", wall_s=f"{time.perf_counter() - t0:.2f}",
+        launches=",".join(f"{k}:{v}" for k, v in got.items() if v),
+        result=f"'{line}'")
+    launches.update(got)
+    return dict(launches)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2410,6 +2730,9 @@ def main() -> int:
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="also profile one run of each full-width path "
                          "into DIR, once every path has run")
+    ap.add_argument("--only", choices=["mesh-tp"], default=None,
+                    help="build the kernels and run this stage alone "
+                         "(no kernels line, no last line)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2433,6 +2756,11 @@ def main() -> int:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, tf32="off",
         int32_ops_per_s=f"{INT32_OPS_PER_S:.6g}")
+
+    if args.only == "mesh-tp":
+        _build.build(_build.SOURCES + _build.HOST_SOURCES)
+        mesh_tp_only(T, dev, gpu_line)
+        return 0
 
     t0 = time.perf_counter()
     items = _build.SOURCES + _build.HOST_SOURCES + tuple(
@@ -2596,6 +2924,7 @@ def main() -> int:
     shutil.rmtree(dot_dir)
     errs["paged_decode_attention_grouped"].append(o_res["max_abs_err"])
     device_times()
+    mesh_launches = mesh_stage(T, dev, gpu_line, ref_store)
 
     entries = [kernel_entry(
         "paged_decode_attention_grouped", ref_launches,
@@ -2693,6 +3022,8 @@ def main() -> int:
                [(V_, st_) for V_ in (MAIN["n_vocab"], GPT2_VOCAB)
                 for st_ in SAMPLE_SETTINGS], sample_rand)
            for n in ("ms", "device_ms", "plain_ms", "bound_ms")}))
+    for e in entries:  # each kernel's launches over every mesh run
+        e["mesh_launches"] = mesh_launches.get(e["name"], 0)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,8 +22,11 @@ JAX package as a hand-written CUDA kernel under csrc/ (paged attention
 with the fused write and the ring partial, one-slot paged attention, the
 group-view and flat ring partials, the ring flush, the int8 prefill
 quantize + scatter, the int4 probe), and the sampling kernel
-(csrc/sample_next_token.cu). Not yet: the dp x tp mesh engines
-(parallel/).
+(csrc/sample_next_token.cu); the dp x tp mesh engines (parallel/:
+ShardedPagedEngine, ShardedNativePagedEngine, ShardedAutonomousEngine,
+ShardedStreamingSession over torch.distributed, one process per rank,
+started by parallel.launch.run_ranks) and their dryrun
+(``python -m min_llm_inference_tpu_torch.dryrun N``).
 """
 
 from .config import EngineConfig, ModelConfig, resolve_device
@@ -37,6 +40,15 @@ from .metrics import ThroughputCounter, get_global_throughput_counter
 from .models.paged import PagedKVState, init_paged_state
 from .models.params import fuse_qkv_params, init_params, params_from_numpy
 from .ops.quant import quantize_params
+from .parallel import (
+    ShardedAutonomousEngine,
+    ShardedNativePagedEngine,
+    ShardedPagedEngine,
+    ShardedStreamingSession,
+    TpShardCtx,
+    make_mesh,
+    run_ranks,
+)
 from .runtime.autonomous import (
     AutonomousEngine,
     BurstStats,
@@ -79,4 +91,11 @@ __all__ = [
     "PagedEngine",
     "ItemStorage",
     "Request",
+    "ShardedAutonomousEngine",
+    "ShardedNativePagedEngine",
+    "ShardedPagedEngine",
+    "ShardedStreamingSession",
+    "TpShardCtx",
+    "make_mesh",
+    "run_ranks",
 ]

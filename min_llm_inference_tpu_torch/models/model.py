@@ -29,8 +29,9 @@ from ..ops.reference import (
 
 
 class SingleChipCtx:
-    """Parallel context: the seams where tensor-parallel execution would
-    differ from one device. On one device the reductions are identities."""
+    """Parallel context: the seams where tensor-parallel execution differs
+    from one device (parallel/sharded.TpShardCtx overrides them). On one
+    device the reductions are identities."""
 
     tp = 1
 
@@ -39,7 +40,10 @@ class SingleChipCtx:
         return x
 
     def pmax(self, x):
-        """Max-reduce feature-sharded absmax (int8 per-page scales)."""
+        """Max-reduce the feature-sharded absmax of the int8/int4 page
+        scales (models/paged.scale_reduce_of hands it to
+        ops/quant.update_page_scales when tp > 1; one device reduces
+        nothing)."""
         return x
 
     def embed(self, params, tokens, positions):

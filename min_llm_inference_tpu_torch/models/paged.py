@@ -74,11 +74,14 @@ class PagedKVState(NamedTuple):
 
 
 def init_paged_state(model_cfg: ModelConfig, engine_cfg: EngineConfig,
-                     device=None) -> PagedKVState:
+                     device=None, tp: int = 1) -> PagedKVState:
     """Zeroed pools (and scales) on ``device`` (``cuda`` unless the caller
-    names another; raises without a GPU)."""
+    names another; raises without a GPU). ``tp`` > 1: one tensor-parallel
+    rank's pools, which hold D/tp features (D/2/tp packed)."""
     dev = resolve_device(device)
-    feat = model_cfg.emb_dim // 2 if engine_cfg.kv_packed else model_cfg.emb_dim
+    feat = model_cfg.emb_dim // tp
+    if engine_cfg.kv_packed:
+        feat //= 2
     shape = (engine_cfg.n_pages, 2, engine_cfg.page_size, feat)
     L = model_cfg.n_layers
     kv = tuple(torch.zeros(shape, dtype=engine_cfg.kv_torch_dtype, device=dev)
@@ -89,6 +92,12 @@ def init_paged_state(model_cfg: ModelConfig, engine_cfg: EngineConfig,
                                      device=dev) for _ in range(L))
         return PagedKVState(kv, scales(), scales())
     return PagedKVState(kv, (None,) * L, (None,) * L)
+
+
+def scale_reduce_of(ctx):
+    """The page-scale reduce of a parallel context: its max over
+    tensor-parallel ranks, or None on one device (no collective)."""
+    return ctx.pmax if ctx.tp > 1 else None
 
 
 def _page_of(page_rows, positions, page_size):
@@ -127,18 +136,20 @@ def _scatter_kv(pool, flat_idx, k, v):
 
 
 def _write_kv_tokens(pool, k_scales, v_scales, flat_idx, k, v, fresh_pid,
-                     n_heads: int = 1):
+                     scale_reduce=None, n_heads: int = 1):
     """Scatter K and V token rows into the pool. For int8/int4 pools the
     pages in fresh_pid (their row 0 is among these writes; out of range =
     none) first get their scale from that row; every row then quantizes
-    against its page's scale, and int4 packs two values per byte."""
+    against its page's scale, and int4 packs two values per byte.
+    scale_reduce: the max over tensor-parallel ranks of the rows' absmax
+    (ops/quant.update_page_scales), None on one device."""
     if k_scales is None:
         return _scatter_kv(pool, flat_idx, k, v), None, None
     P = pool.shape[2]
     packed = pool.shape[-1] * 2 == k.shape[-1]
     qmax = kv_qmax(packed)
-    update_page_scales(k_scales, k, fresh_pid, qmax)
-    update_page_scales(v_scales, v, fresh_pid, qmax)
+    update_page_scales(k_scales, k, fresh_pid, qmax, scale_reduce)
+    update_page_scales(v_scales, v, fresh_pid, qmax, scale_reduce)
     qk = quantize_rows_against_pages(k, flat_idx, k_scales, P, qmax)
     qv = quantize_rows_against_pages(v, flat_idx, v_scales, P, qmax)
     if packed:
@@ -202,6 +213,7 @@ def make_prefill_kv_writer(
     s_pre: int,       # prompt-block width (prompts.shape[1])
     page_size: int,
     n_pages: int,
+    scale_reduce=None,  # tp max of the absmax (_write_kv_tokens)
     n_heads: int = 1,  # int4 packs per head
 ):
     """Build the write_kv_block callback of prefill_write_kv over this
@@ -263,9 +275,9 @@ def make_prefill_kv_writer(
         packed = kv_pages[li].shape[-1] * 2 == D
         qmax = kv_qmax(packed)
         update_page_scales(k_scales[li], k[:, ::P].reshape(-1, D), fresh_pid,
-                           qmax)
+                           qmax, scale_reduce)
         update_page_scales(v_scales[li], v[:, ::P].reshape(-1, D), fresh_pid,
-                           qmax)
+                           qmax, scale_reduce)
         if paged_write and not packed:
             prefill_quant_scatter(
                 kv_pages[li], k, v, pid,
@@ -508,6 +520,7 @@ def make_round_kv_callbacks(
     v_scales: list,
     lengths,
     n_heads=None,
+    scale_reduce=None,
 ):
     """The (write_kv, attend) pair of ONE decode round.
 
@@ -532,8 +545,10 @@ def make_round_kv_callbacks(
 
         def write_kv(li, pos_, k, v, live_):
             if k_scales[li] is not None:
-                update_page_scales(k_scales[li], k, fresh_pid, qmax)
-                update_page_scales(v_scales[li], v, fresh_pid, qmax)
+                update_page_scales(k_scales[li], k, fresh_pid, qmax,
+                                   scale_reduce)
+                update_page_scales(v_scales[li], v, fresh_pid, qmax,
+                                   scale_reduce)
             pending[li] = (k, v)
 
         def attend(li, q, lens):
@@ -553,7 +568,8 @@ def make_round_kv_callbacks(
 
     def write_kv(li, pos_, k, v, live_):
         _write_kv_tokens(kv_pages[li], k_scales[li], v_scales[li],
-                         flat_idx, k, v, fresh_pid, n_heads=heads)
+                         flat_idx, k, v, fresh_pid, scale_reduce,
+                         n_heads=heads)
 
     def attend(li, q, lens):
         return attend_impl(kv_pages[li], k_scales[li], v_scales[li], q, lens)
@@ -575,6 +591,7 @@ def make_ring_round_callbacks(
     round_idx: int,   # ring column written this round
     ring_r0=None,
     n_heads=None,
+    scale_reduce=None,
 ):
     """Ring-mode (write_kv, attend) for ONE decode round of a burst.
 
@@ -605,8 +622,8 @@ def make_ring_round_callbacks(
 
     def write_kv(li, pos_, k, v, live_):
         if quantized:
-            update_page_scales(k_scales[li], k, fresh_pid, qmax)
-            update_page_scales(v_scales[li], v, fresh_pid, qmax)
+            update_page_scales(k_scales[li], k, fresh_pid, qmax, scale_reduce)
+            update_page_scales(v_scales[li], v, fresh_pid, qmax, scale_reduce)
             sk, sv = k_scales[li][pidr], v_scales[li][pidr]
             qk = quantize_against(k, inv_scale(sk)[:, None], qmax)
             qv = quantize_against(v, inv_scale(sv)[:, None], qmax)
@@ -662,7 +679,7 @@ def _prefill(
     the page-granular ``prefill_quant_scatter``."""
     write_kv_block, finalize = make_prefill_kv_writer(
         state, page_rows, prompt_lengths, prompts.shape[1],
-        engine_cfg.page_size, engine_cfg.n_pages,
+        engine_cfg.page_size, engine_cfg.n_pages, scale_reduce_of(ctx),
         n_heads=ctx.local_heads(model_cfg),
     )
     prefill_write_kv(params, model_cfg, prompts, prompt_lengths,
@@ -693,12 +710,14 @@ def _decode_rounds(
     kv_pages = list(state.kv_pages)
     k_scales, v_scales = list(state.k_scales), list(state.v_scales)
     heads = ctx.local_heads(model_cfg)
+    scale_reduce = scale_reduce_of(ctx)
     toks = []
     for _ in range(engine_cfg.n_forward_rounds):
         live = lengths > 0
         write_kv, attend = make_round_kv_callbacks(
             model_cfg, engine_cfg, attention_impl, page_table,
             kv_pages, k_scales, v_scales, lengths, n_heads=heads,
+            scale_reduce=scale_reduce,
         )
         tok, lengths_next = decode_round_tokens(
             params, model_cfg, lengths, last_tokens, write_kv, attend, ctx)
@@ -710,10 +729,12 @@ def _decode_rounds(
 
 
 def make_paged_fns(model_cfg: ModelConfig, engine_cfg: EngineConfig,
-                   attention_impl: str = "torch"):
+                   attention_impl: str = "torch", ctx=DEFAULT_CTX):
     """(prefill, decode_rounds) of the host engines for a config pair:
-    plain functions (eager PyTorch has nothing to compile or cache)."""
+    plain functions (eager PyTorch has nothing to compile or cache). A
+    tensor-parallel ``ctx`` (parallel/sharded.TpShardCtx) makes them one
+    rank's functions at local shapes."""
     check_attention_impl(engine_cfg, attention_impl)
-    return (functools.partial(_prefill, model_cfg, engine_cfg),
+    return (functools.partial(_prefill, model_cfg, engine_cfg, ctx=ctx),
             functools.partial(_decode_rounds, model_cfg, engine_cfg,
-                              attention_impl))
+                              attention_impl, ctx=ctx))

@@ -67,11 +67,18 @@ def dequantize_rows(q, scales):
     return q.float() * scales[..., None].float()
 
 
-def update_page_scales(page_scales, rows, row_pid, qmax=INT8_MAX):
+def update_page_scales(page_scales, rows, row_pid, qmax=INT8_MAX,
+                       absmax_reduce=None):
     """In place: set the scale of each page in row_pid (out of range = no
     update) from its row-0 write, absmax(row) * PAGE_SCALE_HEADROOM / qmax.
-    Valid row_pids are unique within a call. Returns page_scales."""
+    Valid row_pids are unique within a call. Returns page_scales.
+
+    absmax_reduce: a max over tensor-parallel ranks of the [N] absmax
+    vector (each rank holds D/tp features of a row), which makes every
+    rank's scale the full row's, as on one device."""
     absmax = rows.float().abs().amax(dim=-1)
+    if absmax_reduce is not None:
+        absmax = absmax_reduce(absmax)
     cand = absmax * float(np.float32(PAGE_SCALE_HEADROOM / qmax))
     return index_set_drop_(page_scales, row_pid, cand)
 

@@ -73,6 +73,7 @@ from ..models.paged import (
     make_round_kv_callbacks,
     pack_ring_for_flush,
     ring_pad_rows,
+    scale_reduce_of,
 )
 from ..models.params import fuse_qkv_params, params_device
 from ..ops import _build
@@ -145,13 +146,14 @@ def _check_supported(engine_cfg: EngineConfig, attention_impl: str) -> None:
 
 def init_auto_state(model_cfg: ModelConfig, engine_cfg: EngineConfig,
                     n_requests: int, device=None,
-                    sample_seed: int | None = None) -> AutoState:
+                    sample_seed: int | None = None, tp: int = 1) -> AutoState:
     """The free list holds unit ids and a slot's page-table row is made of
     contiguous units: one W-page group under full grant, two W/2-page
     halves under overcommit (an ungrown slot's second half repeats its
     first). ``sample_seed``: the sampling key's seed (None = greedy, no
     key). ``device``: ``cuda`` unless the caller names another (raises
-    without a GPU)."""
+    without a GPU). ``tp`` > 1: a tensor-parallel rank's state, whose
+    pools hold D/tp features."""
     dev = resolve_device(device)
     B = engine_cfg.n_slots
     W = engine_cfg.pages_per_slot(model_cfg.n_seq)
@@ -162,7 +164,7 @@ def init_auto_state(model_cfg: ModelConfig, engine_cfg: EngineConfig,
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     return AutoState(
-        kv=init_paged_state(model_cfg, engine_cfg, dev),
+        kv=init_paged_state(model_cfg, engine_cfg, dev, tp=tp),
         page_table=zeros(B, W),
         lengths=zeros(B),
         last_tokens=zeros(B),
@@ -414,14 +416,16 @@ def _overcommit_admission(engine_cfg: EngineConfig, max_new: int, R: int,
                      prompts, m, slot_ids, oc)
 
 
-def _new_rings(model_cfg: ModelConfig, engine_cfg: EngineConfig, dev,
-               n_rounds: int):
-    """Zeroed per-layer rings [B, R_pad, 2*D] (int4 rows ride unpacked,
-    one int8 per feature) and, for quantized pools, [B, 128] f32 scale
-    columns."""
+def _new_rings(engine_cfg: EngineConfig, kv: PagedKVState, n_rounds: int):
+    """Zeroed per-layer rings [B, R_pad, 2*D] at the pools' feature width D
+    (local under tp; int4 rows ride unpacked, one int8 per feature) and,
+    for quantized pools, [B, 128] f32 scale columns."""
     B = engine_cfg.n_slots
-    shape = (B, ring_pad_rows(n_rounds), 2 * model_cfg.emb_dim)
-    L = model_cfg.n_layers
+    pool = kv.kv_pages[0]
+    dev = pool.device
+    feat = pool.shape[-1] * (2 if engine_cfg.kv_packed else 1)
+    shape = (B, ring_pad_rows(n_rounds), 2 * feat)
+    L = len(kv.kv_pages)
     rings = [torch.zeros(shape, dtype=engine_cfg.kv_torch_dtype, device=dev)
              for _ in range(L)]
     scs = ([torch.zeros((B, 128), dtype=torch.float32, device=dev)
@@ -453,7 +457,6 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     None (greedy) or (temperature, top_k), each round then splitting
     ``st.rng_key``. Pools, outputs and ``counts`` are written in place.
     Returns (state, ring_ctx, host syncs made)."""
-    dev = st.lengths.device
     NP = engine_cfg.n_pages
     P = engine_cfg.page_size
     S = model_cfg.n_seq
@@ -474,12 +477,14 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     # the device (JAX: lax.switch) ----
     kv = st.kv
     heads = ctx.local_heads(model_cfg)
+    scale_reduce = scale_reduce_of(ctx)
     sizes = _prefill_sizes(max_new)
 
     def prefill(bs):
         def run():
             write_kv_block, _ = make_prefill_kv_writer(
-                kv, granted[:bs], plens[:bs], S_pre, P, NP, n_heads=heads)
+                kv, granted[:bs], plens[:bs], S_pre, P, NP, scale_reduce,
+                n_heads=heads)
             prefill_write_kv(params, model_cfg, prompts[:bs], plens[:bs],
                              write_kv_block, ctx)
         return run
@@ -506,7 +511,7 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
         flush_rounds = engine_cfg.n_forward_rounds
         col_base = round_offset
     elif use_ring:
-        rings, ring_scs = _new_rings(model_cfg, engine_cfg, dev, R)
+        rings, ring_scs = _new_rings(engine_cfg, kv, R)
         ring_start = torch.clamp_min(lengths - 1, 0)
         ring_r0 = None
         flush_rounds = R
@@ -522,11 +527,12 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
             write_kv, attend = make_ring_round_callbacks(
                 model_cfg, engine_cfg, page_table, kv_pages, k_scales,
                 v_scales, rings, ring_scs, lengths, ring_start, col_base + r,
-                ring_r0=ring_r0, n_heads=heads)
+                ring_r0=ring_r0, n_heads=heads, scale_reduce=scale_reduce)
         else:
             write_kv, attend = make_round_kv_callbacks(
                 model_cfg, engine_cfg, attention_impl, page_table,
-                kv_pages, k_scales, v_scales, lengths, n_heads=heads)
+                kv_pages, k_scales, v_scales, lengths, n_heads=heads,
+                scale_reduce=scale_reduce)
         if sampling is None:
             tok, new_lengths = decode_round_tokens(
                 params, model_cfg, lengths, last_tokens, write_kv, attend,
@@ -625,8 +631,7 @@ def _autonomous_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
         burst_ring = use_ring and engine_cfg.burst_flush and n_sub > 1
         ring_ctx = None
         if burst_ring:
-            rings, ring_scs = _new_rings(model_cfg, engine_cfg,
-                                         st.lengths.device,
+            rings, ring_scs = _new_rings(engine_cfg, st.kv,
                                          engine_cfg.n_forward_rounds)
             # slots live at burst start: first new position = length - 1,
             # first ring column 0; admissions overwrite their entries
@@ -692,7 +697,7 @@ class _Program:
         ecfg = engine.engine_cfg
         self.full = ecfg.n_slots
         full = init_auto_state(engine.model_cfg, ecfg, cap, dev,
-                               engine.sample_seed)
+                               engine.sample_seed, tp=engine.ctx.tp)
         self.key0 = None if full.rng_key is None else full.rng_key.clone()
         self.st = {ecfg.n_slots: full}
         for b in widths[1:]:
@@ -712,7 +717,7 @@ class _Program:
             _autonomous_burst, engine.model_cfg,
             ecfg if b == ecfg.n_slots else dataclasses.replace(
                 ecfg, n_slots=b),
-            engine.attention_impl, min(engine.max_new, b), DEFAULT_CTX,
+            engine.attention_impl, min(engine.max_new, b), engine.ctx,
             engine.sampling, engine.params, st, self.prompts, self.plens,
             self.n_real, self.counts, self.status)
             for b, st in self.st.items()}
@@ -775,6 +780,21 @@ class _Program:
         return torch.cat([self.counts, pre.view(1)])
 
 
+def check_prompts(requests: List[Request], n_seq: int) -> None:
+    """Raise ValueError for a prompt length outside [1, n_seq - 1]."""
+    for req in requests:
+        if not 0 < len(req.tokens) < n_seq:
+            raise ValueError(f"request {req.id}: prompt length "
+                             f"{len(req.tokens)} not in [1, {n_seq - 1}]")
+
+
+def prompt_bucket(requests: List[Request], n_seq: int) -> int:
+    """The prompt block width of a queue: the next power of two of its
+    longest prompt, at most n_seq."""
+    max_plen = max(len(r.tokens) for r in requests)
+    return min(n_seq, 1 << (max_plen - 1).bit_length())
+
+
 def _fold_counts(stats: "BurstStats", counts: np.ndarray) -> None:
     """Add a pulled count_vector() to ``stats`` (preemptions too) and the
     launches recorded into graphs to the kernel wrappers."""
@@ -805,6 +825,9 @@ class AutonomousEngine:
     path, which reads the gate and the bucket on the host: a check path for
     tests, never a fallback. ``_graph_dot_dir``: write each captured graph
     there (Graphviz) and count its nodes into ``graph_info``.
+
+    ``ctx``: the parallel context; a mesh rank (parallel/autonomous.py)
+    passes its TpShardCtx with its local params and its dp group's config.
     """
 
     def __init__(
@@ -821,6 +844,7 @@ class AutonomousEngine:
         top_k: int = 0,
         sample_seed: int = 0,
         device=None,
+        ctx=DEFAULT_CTX,
         _capture: bool = True,
         _graph_dot_dir: str | None = None,
     ):
@@ -834,6 +858,7 @@ class AutonomousEngine:
         self.params = fuse_qkv_params(params)
         self.model_cfg = model_cfg
         self.engine_cfg = engine_cfg
+        self.ctx = ctx
         self.max_new = min(max_new_per_burst, engine_cfg.n_slots)
         self.chunk = bursts_per_chunk
         self.request_capacity = request_capacity
@@ -871,6 +896,34 @@ class AutonomousEngine:
             self.stats.captures += len(widths)
         return prog
 
+    def _queue(self, requests: List[Request], cap: int, s_pre: int):
+        """The padded prompt queue of ``requests``: ([cap, s_pre] prompts,
+        [cap] lengths) as numpy int32. Raises for a prompt length outside
+        [1, n_seq - 1]."""
+        check_prompts(requests, self.model_cfg.n_seq)
+        prompts_all = np.zeros((cap, s_pre), dtype=np.int32)
+        plens_all = np.zeros(cap, dtype=np.int32)
+        for i, req in enumerate(requests):
+            prompts_all[i, : len(req.tokens)] = req.tokens
+            plens_all[i] = len(req.tokens)
+        return prompts_all, plens_all
+
+    def _load(self, prompts_all, plens_all, n: int) -> _Program:
+        """The program of this queue shape (one per shape, the last one
+        kept), reset, with the queue and its count ``n`` uploaded."""
+        key = prompts_all.shape
+        if self._run_key != key:
+            self._run_program = None
+            self._run_program = self._program(*key, self._widths())
+            self._run_key = key
+        prog = self._run_program
+        prog.reset()
+        prog.prompts.copy_(torch.from_numpy(prompts_all))
+        prog.plens.copy_(torch.from_numpy(plens_all))
+        self.stats.host_syncs += 2  # blocking uploads (pageable memory)
+        prog.n_real.fill_(n)
+        return prog
+
     def run(self, item_storage: ItemStorage) -> None:
         counter = get_global_throughput_counter()
         S = self.model_cfg.n_seq
@@ -879,31 +932,11 @@ class AutonomousEngine:
         if n == 0:
             return
         cap = max(self.request_capacity or 0, n)
-        max_plen = max(len(r.tokens) for r in requests)
         # prompt bucket: the next power of two, so a short-prompt queue does
         # not prefill the full n_seq width
-        s_pre = min(S, 1 << (max_plen - 1).bit_length())
-        prompts_all = np.zeros((cap, s_pre), dtype=np.int32)
-        plens_all = np.zeros(cap, dtype=np.int32)
-        for i, req in enumerate(requests):
-            if not 0 < len(req.tokens) < S:
-                raise ValueError(f"request {req.id}: prompt length "
-                                 f"{len(req.tokens)} not in [1, {S - 1}]")
-            prompts_all[i, : len(req.tokens)] = req.tokens
-            plens_all[i] = len(req.tokens)
-
-        # one program (its buffers and graphs) per queue shape, the last
-        # one kept
-        if self._run_key != (cap, s_pre):
-            self._run_program = None
-            self._run_program = self._program(cap, s_pre, self._widths())
-            self._run_key = (cap, s_pre)
-        prog = self._run_program
-        prog.reset()
-        prog.prompts.copy_(torch.from_numpy(prompts_all))
-        prog.plens.copy_(torch.from_numpy(plens_all))
-        self.stats.host_syncs += 2  # blocking uploads (pageable memory)
-        prog.n_real.fill_(n)
+        s_pre = prompt_bucket(requests, S)
+        prompts_all, plens_all = self._queue(requests, cap, s_pre)
+        prog = self._load(prompts_all, plens_all, n)
 
         counter.start_record()
         done = False
@@ -1203,10 +1236,14 @@ class StreamingSession:
             else:
                 prev = None
         out.extend(self.poll())
-        # the session's device counters so far (the preemptions in full)
+        self._fold_device_counts()
+        return out
+
+    def _fold_device_counts(self) -> None:
+        """The session's device counters so far into ``stats`` (the
+        preemptions in full) and the kernel wrappers' launch counts."""
         counts = self._prog.count_vector().cpu().numpy()
         self._prog.counts.zero_()
         self.stats.host_syncs += 1
         self.stats.preemptions = 0
         _fold_counts(self.stats, counts)
-        return out

@@ -40,6 +40,7 @@ import torch
 from ..config import EngineConfig, ModelConfig, resolve_device
 from ..metrics import get_global_throughput_counter
 from ..models.dense import init_dense_state, make_dense_fns
+from ..models.model import DEFAULT_CTX
 from ..models.paged import init_paged_state, make_paged_fns
 from ..models.params import fuse_qkv_params, params_device
 from ..utils.profiling import phase
@@ -223,12 +224,14 @@ class _PagedLoop(_EngineBase):
     preempted slot's in-flight tokens and recomputing them is exact."""
 
     def __init__(self, params, model_cfg: ModelConfig,
-                 engine_cfg: EngineConfig, attention_impl: str, device):
+                 engine_cfg: EngineConfig, attention_impl: str, device,
+                 ctx=DEFAULT_CTX):
         super().__init__(params, model_cfg, engine_cfg, device)
         self.attention_impl = attention_impl
         self._prefill, self._decode = make_paged_fns(
-            model_cfg, engine_cfg, attention_impl)
-        self.state = init_paged_state(model_cfg, engine_cfg, self.device)
+            model_cfg, engine_cfg, attention_impl, ctx=ctx)
+        self.state = init_paged_state(model_cfg, engine_cfg, self.device,
+                                      tp=ctx.tp)
         W = engine_cfg.pages_per_slot(model_cfg.n_seq)
         self.W = W
         # the host page table [n_slots, W], written in place by the
@@ -273,13 +276,15 @@ class PagedEngine(_PagedLoop):
     two-deep pipelined. ``attention_impl``: ``"paged"`` (the one-slot CUDA
     kernel; float32/int8 KV), ``"grouped"`` (the fused-write CUDA kernel)
     or ``"torch"`` (scatter + the gather oracle); on CPU tensors the
-    kernels' wrappers run their plain versions."""
+    kernels' wrappers run their plain versions. ``ctx``: the parallel
+    context; a mesh rank (parallel/engine.py) passes its TpShardCtx with
+    its local params and its dp group's config."""
 
     def __init__(self, params, model_cfg: ModelConfig,
                  engine_cfg: EngineConfig, attention_impl: str = "torch",
-                 device=None):
+                 device=None, ctx=DEFAULT_CTX):
         super().__init__(params, model_cfg, engine_cfg, attention_impl,
-                         device)
+                         device, ctx)
         self.pool = PagePool(engine_cfg.n_pages)
         self.page_table = PageTable(engine_cfg.n_slots, self.W)
         self.table = self.page_table.table  # written in place by PageTable
@@ -371,15 +376,15 @@ class NativePagedEngine(_PagedLoop):
     own copy at first use). Same two-deep pipelined loop and packed
     operand; all queue/page/result bookkeeping runs natively and writes the
     staging arrays in place. Raises where no C++ compiler can build the
-    scheduler; it never becomes PagedEngine."""
+    scheduler; it never becomes PagedEngine. ``ctx`` as PagedEngine's."""
 
     def __init__(self, params, model_cfg: ModelConfig,
                  engine_cfg: EngineConfig, attention_impl: str = "torch",
-                 device=None):
+                 device=None, ctx=DEFAULT_CTX):
         from .native import NativeScheduler
 
         super().__init__(params, model_cfg, engine_cfg, attention_impl,
-                         device)
+                         device, ctx)
         self.sched = NativeScheduler(
             engine_cfg.n_slots, model_cfg.n_seq, engine_cfg.n_pages,
             self.W, engine_cfg.page_size, engine_cfg.init_num_pages,

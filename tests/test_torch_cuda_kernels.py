@@ -1231,3 +1231,68 @@ def test_graph_sampling_burst_equals_eager(cuda, case):
     assert tokens[0] == tokens[1]
     st = graph_eng.stats
     assert st.host_syncs == 2 + -(-st.bursts // graph_eng.chunk) + 1
+
+
+def mesh_call(model, tree, cfg, prompts, tp, runs=1):
+    import dataclasses
+
+    return ("engine_run", dict(
+        kind="auto", model=dataclasses.asdict(model),
+        engine=dataclasses.asdict(cfg), recipe=("numpy", tree),
+        prompts=prompts, tp=tp, attention="grouped", runs=runs,
+        engine_kw=dict(max_new_per_burst=8)))
+
+
+def single_chip_tokens(dev, model, tree, cfg, prompts):
+    eng = T.AutonomousEngine(T.params_from_numpy(tree, model, dev), model,
+                             cfg, device=dev, max_new_per_burst=8)
+    store = T.ItemStorage()
+    for i, p in enumerate(prompts):
+        store.add_new_item(T.Request(i, list(p)))
+    eng.run(store)
+    return {i: r.tokens for i, r in store.finished.items()}
+
+
+@pytest.mark.cuda
+def test_mesh_ref_world_size_1_graphed(cuda):
+    """ShardedAutonomousEngine at world size 1 (NCCL) on the ref case: its
+    burst is a CUDA graph, its tokens the single-chip engine's, its fused
+    writes one a round, on the run that replays the first run's graph."""
+    from min_llm_inference_tpu_torch.parallel import run_ranks, workers
+
+    model, tree = graph_model("ref")
+    cfg = T.EngineConfig(n_slots=16, page_size=16, n_pages=64,
+                         n_forward_rounds=4, kv_dtype="int4",
+                         decode_ring=False, subbursts=2)
+    prompts = graph_prompts(21, 40)
+    want = single_chip_tokens(cuda, model, tree, cfg, prompts)
+    (r,), = run_ranks(workers.run_cases, 1,
+                      ([mesh_call(model, tree, cfg, prompts, 1, runs=2)],),
+                      timeout=300)
+    assert r["graphed"] and r["stats"]["captures"] == 0
+    assert r["tokens"] == want
+    assert (r["launches"]["paged_decode_attention_grouped"]
+            == r["stats"]["rounds"] > 0)
+
+
+@pytest.mark.cuda
+def test_mesh_tp2_share_device_equals_single_chip(cuda):
+    """tp = 2 with both ranks on the one card (gloo, eager bursts) on the
+    gpt2s-shaped case (ring, dgrid, int8 KV): the single-chip engine's
+    tokens on every rank; dgrid once a layer-round at 2 local heads."""
+    from min_llm_inference_tpu_torch.parallel import run_ranks, workers
+
+    model, tree = graph_model("gpt2s")
+    cfg = T.EngineConfig(n_slots=16, page_size=16, n_pages=64,
+                         n_forward_rounds=4, kv_dtype="int8",
+                         decode_ring=True, attn_dgrid=True, sort_admits=True)
+    prompts = graph_prompts(22, 40)
+    want = single_chip_tokens(cuda, model, tree, cfg, prompts)
+    results = run_ranks(workers.run_cases, 2,
+                        ([mesh_call(model, tree, cfg, prompts, 2)],),
+                        share_device=True, timeout=300)
+    for (r,) in results:
+        assert not r["graphed"]
+        assert r["tokens"] == want
+        assert (r["launches"]["dgrid_paged_partial"]
+                == r["stats"]["rounds"] * model.n_layers > 0)
