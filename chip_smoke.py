@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                    # every phase
     python3 chip_smoke.py --profile DIR      # + device-time tables in DIR
+    python3 chip_smoke.py --only bf16-kv     # the build and [bf16-kv] alone
 
 Phases, one line each; any failure raises and exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -49,7 +50,12 @@ Phases, one line each; any failure raises and exits non-zero:
      threshold, or the whole row); and its device time with a warp and
      with a block per row at 1024-2048 columns ([sample-switch], the data
      behind the launcher's switch, ops/sampling.narrow_max_v()), and on
-     all-equal rows (the whole-row select);
+     all-equal rows (the whole-row select); the four attention kernels
+     at bfloat16 pools (bf16_checks: the grouped modes a, b, c at the
+     reference path's shapes, the one-slot kernel at the host path's,
+     dgrid and flat at the gpt2s path's, flat at the reference ring's,
+     timed beside their bound; the long, wide, odd-head and fused-position
+     edges);
   4. engine parity on the card at small configs: the kernel path
      (attention_impl="grouped") against the gather oracle ("torch"),
      token for token: no ring for int4, int8 and float32 KV (reference
@@ -59,8 +65,10 @@ Phases, one line each; any failure raises and exits non-zero:
      (f32, int8, int4); overcommit with forced preemption without the
      ring, with the ring on mode (c) and on the flat partial (f32, int8);
      the host engines' PagedEngine "paged" and "grouped" against "torch"
-     for float32 and int8 KV, roomy and preempting, and DenseEngine
-     against PagedEngine("torch");
+     for float32, int8 and bfloat16 KV, roomy and preempting, and
+     DenseEngine against PagedEngine("torch"); at bfloat16 KV also the
+     reference model without the ring and the gpt2s-shaped one with the
+     ring on mode (c), dgrid and the flat partial;
   5. the reference path at full width, as ``python bench.py`` runs the JAX
      package with no flags: AutonomousEngine, the reference-parity model
      (1 layer, 1 head, emb 2048, vocab 1024, n_seq 128, bf16 weights made
@@ -141,7 +149,15 @@ Phases, one line each; any failure raises and exits non-zero:
      (models.params.params_checksum) of JAX's init_params(PRNGKey(0), ...)
      (GPT2S_INIT_SHA256, recomputed from the JAX package on the CPU by
      tests/test_torch_random.py);
- 14. the mesh engines (parallel/), after every timed phase, their ranks
+ 14. [bf16-kv], bfloat16 KV at full width: phase 5 with
+     kv_dtype="bfloat16" (warm, timed and eager runs, the middle
+     fused-write call replayed), the host path as ``python bench.py
+     --engine host --kv-dtype bfloat16 --rounds 32`` runs the JAX package
+     on "grouped" and on "paged" (equal but for near-ties, at most 8
+     requests), and the flagship decode step (entry.entry(): 12 layers,
+     bf16 KV, 256 slots) on "torch" and on "grouped" (equal but for
+     near-ties);
+ 15. the mesh engines (parallel/), after every timed phase, their ranks
      in processes of their own (parallel/launch.run_ranks): [mesh-ref]
      ShardedAutonomousEngine on phase 5's path at world size 1 (NCCL) and
      dp = 2 and 4 on the one card (gloo, share_device; tp = 1, so every
@@ -154,14 +170,18 @@ Phases, one line each; any failure raises and exits non-zero:
      has its walls, syncs per burst, graph or eager, and the launches of
      its ranks, each rank's held against its own stats.
 With --profile, one more run of each full-width path under torch.profiler
-once all ten phases have run ([profile] lines, device time by kernel in
-DIR/<path>_kernels.txt).
+once every path before the mesh has run ([profile] lines, device time by
+kernel in DIR/<path>_kernels.txt): a graph with IF nodes captured after a
+profiler session faults with an illegal address when replayed under a
+later one (tools/graph_profile_repro.py), so no capture follows a
+session.
 Then a [kernel_device] line per timed check (the kernel's device time alone,
 by CUDA events behind a device sleep, device_ev_ms, and from
 torch.profiler, device_ms; taken after every path so that the profiler's
 cost stays out of the walls; the host path's replayed one-slot call also
 gets a device_ev_ms right after its path), a JSON line of per-kernel
-numbers (eight kernels) and, last, the ok line.
+numbers (eight kernels, and the four attention kernels again at bf16
+pools) and, last, the ok line.
 
 Float32 matmuls run in full float32: TF32 is turned off below.
 """
@@ -330,6 +350,15 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 # ---------------------------------------------------------------- phase 3
 
 
+def bf16_pool(rng, dev, shape):
+    """A standard-normal bfloat16 pool drawn on the card (a generator
+    seeded from ``rng``): the reference path's 1.07 GB pool would take
+    seconds to draw with numpy."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(2 ** 31)))
+    return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+
 def grouped_case(rng, dev, B, W, P, D, H, kv, in_dtype, NP=None,
                  lengths=None):
     """Random fused-write inputs in the engine's layout: contiguous page
@@ -362,16 +391,17 @@ def grouped_case(rng, dev, B, W, P, D, H, kv, in_dtype, NP=None,
         pool = (16 * hi + lo).astype(np.int8)
     elif kv == "int8":
         pool = rng.integers(-127, 128, (NP, 2, P, Dk)).astype(np.int8)
-    else:
+    elif kv == "float32":
         pool = rng.standard_normal((NP, 2, P, Dk)).astype(np.float32)
     qkv = torch.from_numpy(
         rng.standard_normal((B, 3 * D)).astype(np.float32)).to(dev, in_dtype)
     t = {"q": qkv[:, :D], "k_new": qkv[:, D:2 * D], "v_new": qkv[:, 2 * D:],
          "kw": dict(n_heads=H, packed_int4=packed)}
-    t["pool"] = torch.from_numpy(pool).to(dev)
+    t["pool"] = (bf16_pool(rng, dev, (NP, 2, P, Dk)) if kv == "bfloat16"
+                 else torch.from_numpy(pool).to(dev))
     t["lengths"] = torch.from_numpy(lengths).to(dev)
     t["table"] = torch.from_numpy(table).to(dev)
-    if kv == "float32":
+    if kv in ("float32", "bfloat16"):
         t["ks"] = t["vs"] = None
     else:
         qmax = kv_qmax(packed)
@@ -397,9 +427,10 @@ def bound_of(nbytes, ops, ops_per_s=F32_FLOPS) -> tuple:
 # (case, result, kernel call) of every timed check, for device_times()
 DEVICE_PENDING = []
 # (run, its unprofiled wall, path) of every path to profile once all paths
-# have run (``--profile``): a graph captured after a torch.profiler session
-# faulted with an illegal address when replayed under a later one, and the
-# profiler's host cost stays out of every path's wall
+# have run (``--profile``): a graph with IF nodes captured after a
+# torch.profiler session faults with an illegal address when replayed
+# under a later one (tools/graph_profile_repro.py), and the profiler's
+# host cost stays out of every path's wall
 PROFILE_PENDING = []
 
 
@@ -526,16 +557,18 @@ def partial_case(rng, dev, B, W, P, D, kv, in_dtype, NP):
                 + rng.integers(-7, 8, shape, dtype=np.int8))
     elif kv == "int8":
         pool = rng.integers(-127, 128, shape, dtype=np.int8)
-    else:
+    elif kv == "float32":
         pool = rng.standard_normal(shape, dtype=np.float32)
     qkv = torch.from_numpy(
         rng.standard_normal((B, 3 * D)).astype(np.float32)).to(dev, in_dtype)
-    t = {"q": qkv[:, :D], "pool": torch.from_numpy(pool).to(dev),
+    t = {"q": qkv[:, :D],
+         "pool": (bf16_pool(rng, dev, shape) if kv == "bfloat16"
+                  else torch.from_numpy(pool).to(dev)),
          "rs": torch.from_numpy(rs).to(dev),
          "lengths": torch.from_numpy(lengths).to(dev),
          "table": torch.from_numpy(table).to(dev), "ks": None, "vs": None,
          "packed": packed}
-    if kv != "float32":
+    if kv in ("int8", "int4"):
         for side in ("ks", "vs"):
             t[side] = torch.from_numpy(
                 (rng.random(NP) * 0.05 + 0.001).astype(np.float32)).to(dev)
@@ -933,11 +966,13 @@ def one_slot_case(rng, dev, B, W, P, D, kv, in_dtype, NP, boundary=False):
         table[d] = table[rng.choice(live)]
     if kv == "int8":
         pool = rng.integers(-127, 128, (NP, 2, P, D), dtype=np.int8)
-    else:
+    elif kv == "float32":
         pool = rng.standard_normal((NP, 2, P, D), dtype=np.float32)
     qkv = torch.from_numpy(
         rng.standard_normal((B, 3 * D)).astype(np.float32)).to(dev, in_dtype)
-    t = {"q": qkv[:, :D], "pool": torch.from_numpy(pool).to(dev),
+    t = {"q": qkv[:, :D],
+         "pool": (bf16_pool(rng, dev, (NP, 2, P, D)) if kv == "bfloat16"
+                  else torch.from_numpy(pool).to(dev)),
          "lengths": torch.from_numpy(lengths).to(dev),
          "table": torch.from_numpy(table).to(dev), "ks": None, "vs": None}
     if kv == "int8":
@@ -1358,20 +1393,24 @@ def parity(T, dev, model, params, cfg, prompts, label):
             stats, launches)
 
 
-def engine_parity(T, dev) -> int:
+def engine_parity(T, dev) -> tuple:
     """Phase 4. Returns the grouped kernel's mode-(c) launches (the ring
-    configs with dgrid off)."""
+    configs with dgrid off) at float32, int8 and int4 KV, and the
+    attention kernels' launches at bf16 KV by kernel name."""
     model = T.ModelConfig(n_vocab=256, emb_dim=32, n_seq=64, eof_token_id=255)
     params = T.params_from_numpy(
         numpy_init_params(np.random.default_rng(1), model, 0.05), model, dev)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, 255, int(rng.integers(1, 24))).tolist()
                for _ in range(24)]
-    for kv in ("int4", "int8", "float32"):
+    bf16 = collections.Counter()
+    for kv in ("int4", "int8", "float32", "bfloat16"):
         cfg = T.EngineConfig(n_slots=8, page_size=16, n_pages=32,
                              n_forward_rounds=4, subbursts=2, kv_dtype=kv,
                              decode_ring=False)
-        n_gen, _, _ = parity(T, dev, model, params, cfg, prompts, kv)
+        n_gen, _, launched = parity(T, dev, model, params, cfg, prompts, kv)
+        if kv == "bfloat16":
+            bf16.update(launched)
         log("engine", kv=kv, requests=len(prompts), generated=n_gen,
             tokens="grouped == torch")
     # ring decode on a small gpt2s-shaped model (multi-head, LN, wo, FFN)
@@ -1384,25 +1423,32 @@ def engine_parity(T, dev) -> int:
     for kv, extra in (("int8", dict(attn_dgrid=True, sort_admits=True)),
                       ("int8", dict(subbursts=2)),
                       ("int4", dict(subbursts=2, burst_flush=False)),
-                      ("float32", dict(attn_dgrid=True))):
+                      ("float32", dict(attn_dgrid=True)),
+                      ("bfloat16", dict(subbursts=2)),
+                      ("bfloat16", dict(attn_dgrid=True)),
+                      ("bfloat16", dict(attn_flat=True, subbursts=2))):
         cfg = T.EngineConfig(n_slots=8, page_size=16, n_pages=32,
                              n_forward_rounds=4, kv_dtype=kv,
                              decode_ring=True, **extra)
         label = f"ring-{kv}-" + "-".join(f"{k}={v}" for k, v in extra.items())
         n_gen, _, launched = parity(T, dev, gmodel, gparams, cfg, prompts,
                                     label)
-        got = [launched[n] for n in (
-            "paged_decode_attention_grouped", "dgrid_paged_partial",
-            "ring_flush", "prefill_quant_scatter")]
-        if (got[1] > 0) != cfg.attn_dgrid or got[2] == 0 or (
-                (got[0] > 0) == cfg.attn_dgrid):
+        names = ("paged_decode_attention_grouped", "dgrid_paged_partial",
+                 "ring_flush", "prefill_quant_scatter",
+                 "paged_decode_attention_flat")
+        got = [launched[n] for n in names]
+        attn = 1 if cfg.attn_dgrid else 4 if cfg.attn_flat else 0
+        if got[2] == 0 or any((got[i] > 0) != (i == attn) for i in (0, 1, 4)):
             raise AssertionError(f"{label}: launches grouped/dgrid/flush/"
-                                 f"prefill {got} do not fit the config")
-        mode_c += 0 if cfg.attn_dgrid else got[0]
+                                 f"prefill/flat {got} do not fit the config")
+        if kv == "bfloat16":
+            bf16.update(dict(zip(names, got)))
+        else:
+            mode_c += got[0]
         log("engine", case=label, requests=len(prompts), generated=n_gen,
             tokens="grouped == torch",
-            launches_grouped_dgrid_flush_prefill="/".join(map(str, got)))
-    return mode_c
+            launches_grouped_dgrid_flush_prefill_flat="/".join(map(str, got)))
+    return mode_c, bf16
 
 
 def variant_parity(T, dev) -> int:
@@ -1474,14 +1520,15 @@ def variant_parity(T, dev) -> int:
     return flat
 
 
-def host_parity(T, dev) -> int:
+def host_parity(T, dev) -> tuple:
     """Phase 4, host engines: PagedEngine's kernel paths ("paged", the
     one-slot kernel; "grouped", the fused-write kernel over fragmented
     tables) against its gather oracle ("torch"), token for token, for
-    float32 and int8 KV, in a roomy config and one that preempts; then
-    DenseEngine against PagedEngine("torch") on float32. Each kernel path
-    must launch its kernel once per round and layer. Returns the one-slot
-    kernel's launches."""
+    float32, int8 and bfloat16 KV, in a roomy config and one that
+    preempts; then DenseEngine against PagedEngine("torch") on float32.
+    Each kernel path must launch its kernel once per round and layer.
+    Returns the one-slot kernel's launches at float32 and int8 KV, and
+    the kernels' launches at bf16 KV by kernel name."""
     kernels = counters()
     model = T.ModelConfig(n_vocab=256, emb_dim=32, n_seq=64, eof_token_id=255)
     params = T.params_from_numpy(
@@ -1490,7 +1537,8 @@ def host_parity(T, dev) -> int:
     prompts = [rng.integers(0, 255, int(rng.integers(1, 40))).tolist()
                for _ in range(24)]
     one_slot = 0
-    for kv in ("float32", "int8"):
+    bf16 = collections.Counter()
+    for kv in ("float32", "int8", "bfloat16"):
         for label, extra in (("roomy", {}),
                              ("pressure", dict(n_pages=6, init_num_pages=1))):
             cfg = T.EngineConfig(**{**dict(
@@ -1517,7 +1565,9 @@ def host_parity(T, dev) -> int:
                 if got != want:
                     raise AssertionError(f"host {kv} {label} {impl}: launches "
                                          f"{got}, expected {want}")
-                if impl == "paged":
+                if kv == "bfloat16":
+                    bf16.update(got)
+                elif impl == "paged":
                     one_slot += got.get(kname, 0)
             for impl in ("paged", "grouped"):
                 if outs[impl] != outs["torch"]:
@@ -1551,7 +1601,7 @@ def host_parity(T, dev) -> int:
         raise AssertionError("DenseEngine differs from PagedEngine(torch)")
     log("engine", host="DenseEngine-float32", requests=len(prompts),
         tokens="dense == paged-torch")
-    return one_slot
+    return one_slot, bf16
 
 
 def counters():
@@ -1783,16 +1833,18 @@ def timed_run(run, n_req, want_of, label):
     return eng, store, wall, launches
 
 
-def main_path(T, dev, gpu_line, dot_dir, profile_dir=None):
-    """Phase 5: the reference path at full width. Returns (the fused-write
+def main_path(T, dev, gpu_line, dot_dir, profile_dir=None, kv="int4",
+              label="main"):
+    """Phase 5 (and [bf16-kv] (i) at ``kv`` "bfloat16", logged under
+    ``label``): the reference path at full width. Returns (the fused-write
     kernel's launches in the timed run, the replayed call's result, (the
     graph engine, the timed run's store, its wall, the warm run's host
     syncs and bursts))."""
-    model, cfg, run, warm = ref_model_run(T, dev, "main", dot_dir,
-                                          kv_dtype="int4", decode_ring=False)
+    model, cfg, run, warm = ref_model_run(T, dev, label, dot_dir,
+                                          kv_dtype=kv, decode_ring=False)
     D, S, n_req = model.emb_dim, model.n_seq, MAIN["requests"]
     eng, store, wall, counts = timed_run(run, n_req, lambda st: {
-        "paged_decode_attention_grouped": st.rounds * model.n_layers}, "main")
+        "paged_decode_attention_grouped": st.rounds * model.n_layers}, label)
     launches = counts["paged_decode_attention_grouped"]
     st = eng.stats
     total = check_outputs(store, n_req, S, model.n_vocab)
@@ -1801,10 +1853,11 @@ def main_path(T, dev, gpu_line, dot_dir, profile_dir=None):
     ctx = np.concatenate([np.arange(r.prompt_len, len(r.tokens))
                           for r in store.finished.values()])
     W = cfg.pages_per_slot(S)
-    run_bound, _ = grouped_bound(ctx, launches, cfg.n_slots, D, D // 2, W,
-                                 cfg.page_size, 2, 1, True)
-    log("main", requests=n_req, generated=total, wall_s=f"{wall:.4f}",
-        tok_s=f"{total / wall:.1f}", gpu=f"'{gpu_line}'",
+    run_bound, _ = grouped_bound(
+        ctx, launches, cfg.n_slots, D, D // 2 if cfg.kv_packed else D, W,
+        cfg.page_size, 2, cfg.kv_torch_dtype.itemsize, cfg.kv_quantized)
+    log(label, requests=n_req, generated=total, wall_s=f"{wall:.4f}",
+        tok_s=f"{total / wall:.1f}", gpu=f"'{gpu_line}'", kv_dtype=kv,
         bursts=st.bursts, skipped=st.skipped, rounds=st.rounds,
         kernel_launches=launches,
         host_syncs_per_burst=f"{st.host_syncs / st.bursts:.3f}",
@@ -1818,14 +1871,14 @@ def main_path(T, dev, gpu_line, dot_dir, profile_dir=None):
     snaps, eager = capture_calls(lambda: run(n_req, seed=2, capture=False), {
         "grouped": ("models.paged", "paged_decode_attention_grouped",
                     call_ix)})
-    graph_vs_eager("main", eng, store, wall, *eager)
+    graph_vs_eager(label, eng, store, wall, *eager)
     args, kw = snaps["grouped"]
     names = ("q", "pool", "lengths", "table", "ks", "vs", "k_new", "v_new")
-    res = check_grouped(f"main-path-call-{call_ix}",
+    res = check_grouped(f"{label}-path-call-{call_ix}",
                         dict(zip(names, args), kw=kw), timed=True)
     res["run_bound_ms_per_launch"] = run_bound / launches
     if profile_dir:
-        PROFILE_PENDING.append((lambda: run(n_req, seed=2), wall, "main"))
+        PROFILE_PENDING.append((lambda: run(n_req, seed=2), wall, label))
     return launches, res, (eng, store, wall, warm)
 
 
@@ -2457,41 +2510,6 @@ def mesh_log(label, mesh, ranks, launches, gpu_line, **extra):
         gpu=f"'{gpu_line}'", **extra)
 
 
-def plain_logits(T, params, model, tokens, page_size=None):
-    """The f32 logits after ``tokens`` by a plain full-sequence forward of
-    the model (the near-tie check of [mesh-tp]). With ``page_size`` every
-    layer's K and V go through the int8 page quantization first (each
-    page's scale from its row 0, as the engines set it)."""
-    from min_llm_inference_tpu_torch.models import model as mm
-    from min_llm_inference_tpu_torch.ops.quant import (
-        INT8_MAX, PAGE_SCALE_HEADROOM, inv_scale, quantize_against)
-    from min_llm_inference_tpu_torch.ops.reference import (
-        feed_forward, tied_logits, token_pos_embed)
-
-    def int8_pages(x):
-        L = x.shape[1]
-        rows0 = x[0, ::page_size].float()
-        s = rows0.abs().amax(-1) * float(
-            np.float32(PAGE_SCALE_HEADROOM / INT8_MAX))
-        s = s.repeat_interleave(page_size)[:L]
-        q = quantize_against(x[0], inv_scale(s)[:, None], INT8_MAX)
-        return (q.float() * s[:, None])[None].to(x.dtype)
-
-    dev = params["wte"].device
-    t = torch.tensor([tokens], dtype=torch.int32, device=dev)
-    pos = torch.arange(len(tokens), dtype=torch.int32, device=dev)[None]
-    h = token_pos_embed(t, pos, params["wte"], params["wpe"])
-    lens = torch.tensor([len(tokens)], dtype=torch.int32, device=dev)
-    for layer in params["layers"]:
-        x = mm.layer_attn_input(layer, model, h)
-        q, k, v = (feed_forward(x, layer[n]) for n in ("wq", "wk", "wv"))
-        if page_size:
-            k, v = int8_pages(k), int8_pages(v)
-        a = mm.causal_masked_attention(q, k, v, lens, model.n_heads)
-        h = mm.layer_post(layer, model, h, a)
-    return tied_logits(h[0, -1:], params["wte"])[0]
-
-
 def mesh_tp_setup(T, dev):
     """[mesh-tp]'s case: the gpt2s path's model and engine (phase 6) in
     float32 with init_params(0) weights, without the drain downshift (the
@@ -2526,10 +2544,12 @@ def tp_difference(T, case, rid, got):
     differing token's top-2 gap in the plain f32 logits, and the logit
     noise int8 KV makes there (the largest change of a logit when K and V
     go through the page quantization). Returns (gap, noise)."""
+    from min_llm_inference_tpu_torch.tools.fuzz_draws import plain_logits
+
     want = case["want"][rid]
     j = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
-    f32 = plain_logits(T, case["params"], case["model"], want[:j])
-    i8 = plain_logits(T, case["params"], case["model"], want[:j],
+    f32 = plain_logits(case["params"], case["model"], want[:j])
+    i8 = plain_logits(case["params"], case["model"], want[:j], "int8",
                       case["cfg"]["page_size"])
     top = torch.topk(f32, 2)
     gap = float(top.values[0] - top.values[1])
@@ -2602,7 +2622,7 @@ def mesh_tp_only(T, dev, gpu_line):
 
 
 def mesh_stage(T, dev, gpu_line, ref_store):
-    """Phase 14: the mesh engines (parallel/), their ranks spawned by
+    """Phase 15: the mesh engines (parallel/), their ranks spawned by
     parallel/launch.run_ranks after every timed phase (the libraries built
     in phase 2). [mesh-ref]: ShardedAutonomousEngine on the main path
     (phase 5's model, weights, engine and 2048 requests) at world size 1
@@ -2683,6 +2703,292 @@ def mesh_stage(T, dev, gpu_line, ref_store):
     return dict(launches)
 
 
+# ---------------------------------------------------------------- bf16 KV
+
+
+def bf16_checks(rng, dev) -> dict:
+    """Phase 3 at bfloat16 pools, each kernel against its plain version on
+    the card (pool bytes bit-identical after the fused write, outputs and
+    partials within 1e-4 x max(1, |x|)), the timed ones beside their bound
+    (the pool at 2 B a feature): the grouped kernel's modes (a), (b) and
+    (c) at the reference path's shapes (1024 slots, emb 2048, one head, P
+    32, 4096 pages); the one-slot kernel at the host path's; dgrid and
+    flat at the gpt2s path's (12 heads of 64); flat at the reference
+    ring's; then the edges: the one-slot and the grouped modes at
+    12-head contexts of W*P = 4096 and at rows of 8192 features in one
+    head, the fused write with the new row at every position class of a
+    tile and a page, five times over one pool, and heads of 5 features
+    (2-byte reads). Returns {check: result} and the errors by kernel."""
+    P = MAIN["page_size"]
+    W = -(-MAIN["n_seq"] // P)
+    B, D, NP = MAIN["n_slots"], MAIN["emb_dim"], MAIN["n_pages"]
+    g = GPT2S
+    gshape = (g["n_slots"], W, g["page_size"], g["emb_dim"])
+    bf = torch.bfloat16
+    res = {
+        "grouped": check_grouped("main-bf16", grouped_case(
+            rng, dev, B, W, P, D, 1, "bfloat16", bf, NP=NP), timed=True),
+        "mode_c": check_partial("ref-mode-c-bf16", "grouped", partial_case(
+            rng, dev, B, W, P, D, "bfloat16", bf, NP), 1, timed=True),
+        "one_slot": check_one_slot("host-one-slot-bf16", one_slot_case(
+            rng, dev, B, W, P, D, "bfloat16", bf, NP), 1, timed=True),
+        "dgrid": check_partial("gpt2s-dgrid-bf16", "dgrid", partial_case(
+            rng, dev, *gshape, "bfloat16", bf, g["n_pages"]), g["n_heads"],
+            timed=True),
+        "flat": check_partial("gpt2s-flat-bf16", "flat", partial_case(
+            rng, dev, *gshape, "bfloat16", bf, g["n_pages"]), g["n_heads"],
+            timed=True),
+        "flat_ref": check_partial("ref-flat-bf16", "flat", partial_case(
+            rng, dev, B, W, P, D, "bfloat16", bf, NP), 1, timed=True),
+    }
+    errs = {"paged_decode_attention_grouped": [res["grouped"]["max_abs_err"],
+                                               res["mode_c"]["max_abs_err"]],
+            "paged_decode_attention": [res["one_slot"]["max_abs_err"]],
+            "dgrid_paged_partial": [res["dgrid"]["max_abs_err"]],
+            "paged_decode_attention_flat": [res["flat"]["max_abs_err"],
+                                            res["flat_ref"]["max_abs_err"]]}
+    grouped = errs["paged_decode_attention_grouped"]
+    for label, Bn, Wn, Dn, H in (("long-W128", 24, 128, 768, 12),
+                                 ("wide-D8192", 32, 4, 8192, 1),
+                                 ("odd-dh5", 24, 4, 15, 3)):
+        t = one_slot_case(rng, dev, Bn, Wn, P, Dn, "bfloat16", bf,
+                          Bn * Wn + 3)
+        errs["paged_decode_attention"].append(check_one_slot(
+            f"one-slot-{label}-bf16", t, H, timed=False)["max_abs_err"])
+        t = grouped_case(rng, dev, Bn, Wn, P, Dn, H, "bfloat16", bf,
+                         NP=(Bn + 3) * Wn)
+        grouped.append(check_grouped(f"grouped-{label}-bf16", t,
+                                     timed=False)["max_abs_err"])
+        t = partial_case(rng, dev, Bn, Wn, P, Dn, "bfloat16", bf,
+                         (Bn + 2) * Wn)
+        t["rs"][6] = Wn * P
+        t["lengths"][6] = Wn * P
+        grouped.append(check_partial(f"grouped-c-{label}-bf16", "grouped", t,
+                                     H, timed=False)["max_abs_err"])
+        for kind, name in (("dgrid", "dgrid_paged_partial"),
+                           ("flat", "paged_decode_attention_flat")):
+            errs[name].append(check_partial(f"{kind}-{label}-bf16", kind, t,
+                                            H, timed=False)["max_abs_err"])
+    lengths = [0, 1, 4, 8, 9, 12, 16, 17, 20, 24, 25, 31, 32, 33, 36, 40, 47,
+               48, 49, 64, 65, 72, 96, 97, 100, 112, 127, 128, 0, 3]
+    t = grouped_case(rng, dev, len(lengths), 4, P, D, 1, "bfloat16", bf,
+                     NP=(len(lengths) + 3) * 4, lengths=lengths)
+    for rep in range(5):
+        grouped.append(check_grouped(f"fused-positions-bf16-{rep}", t,
+                                     timed=False)["max_abs_err"])
+    return res, errs
+
+
+def as_float32(tree):
+    """A parameter tree's dense leaves in float32 (the same values)."""
+    return {"wte": tree["wte"].float(), "wpe": tree["wpe"].float(),
+            "layers": [{k: v.float() for k, v in layer.items()}
+                       for layer in tree["layers"]]}
+
+
+def bf16_tie(T, params, model, tokens):
+    """The near-tie measure of [bf16-kv] (ii) at the token after
+    ``tokens``: the top-2 gap of the f32 logits of a plain forward on the
+    float32 values of the weights, and the model's precision noise there
+    (the largest change of a logit between that forward and the same one
+    in the model's dtype, bfloat16). Returns (gap, noise)."""
+    from min_llm_inference_tpu_torch.tools.fuzz_draws import plain_logits
+
+    f32 = plain_logits(as_float32(params),
+                       dataclasses.replace(model, dtype="float32"), tokens)
+    low = plain_logits(params, model, tokens).float()
+    top = torch.topk(f32, 2)
+    return (float(top.values[0] - top.values[1]),
+            float((low - f32).abs().max()))
+
+
+def bf16_host(T, dev, gpu_line):
+    """[bf16-kv] (ii): the host path as ``python bench.py --engine host
+    --kv-dtype bfloat16 --rounds 32`` runs the JAX package (PagedEngine,
+    the reference model and request stream of phase 5, 32 rounds an
+    iteration, bf16 KV) on the fused-write kernel ("grouped", bench.py's
+    default), then on the one-slot kernel ("paged"): a warm run of 64
+    requests each, then the timed run with the launch counters at 0 (one
+    attention launch a round, nothing else). The two must agree token for
+    token but for near-ties (bf16_tie: the top-2 gap below NEAR_TIE x the
+    model's bf16 noise there), in at most MESH_TP_MAX_DIFFERING requests.
+    The middle one-slot call is replayed against the plain version.
+    Returns ({impl: launches}, the replayed call's result)."""
+    V, D, S, P = (MAIN["n_vocab"], MAIN["emb_dim"], MAIN["n_seq"],
+                  MAIN["page_size"])
+    n_req = MAIN["requests"]
+    model = ref_model(T)
+    cfg = T.EngineConfig(n_slots=MAIN["n_slots"], n_pages=MAIN["n_pages"],
+                         n_forward_rounds=32, page_size=P, init_num_pages=2,
+                         kv_dtype="bfloat16", max_prefill_batch=128,
+                         decode_ring=False, subbursts=2)
+    params = ref_params(T, dev)
+    kname = {"grouped": "paged_decode_attention_grouped",
+             "paged": "paged_decode_attention"}
+
+    def run(impl, n, seed):
+        return drive(T, dev, params, model, cfg, n, seed,
+                     dict(attention_impl=impl), engine_cls=T.PagedEngine)
+
+    kernels = counters()
+    stores, launches = {}, {}
+    for impl in ("grouped", "paged"):
+        run(impl, 64, seed=1)
+        for k in kernels.values():
+            k.launches = 0
+        eng, store, wall = run(impl, n_req, seed=2)
+        got = {name: k.launches for name, k in kernels.items() if k.launches}
+        st = eng.stats
+        if got != {kname[impl]: st.rounds * model.n_layers}:
+            raise AssertionError(f"bf16-kv host {impl}: launches {got}, "
+                                 f"expected {st.rounds} of {kname[impl]}")
+        total = check_outputs(store, n_req, S, V)
+        stores[impl], launches[impl] = store, st.rounds * model.n_layers
+        log("bf16-kv", path="host", attention=impl, requests=n_req,
+            generated=total, wall_s=f"{wall:.4f}",
+            tok_s=f"{total / wall:.1f}", gpu=f"'{gpu_line}'",
+            iterations=st.bursts, rounds=st.rounds, prefills=st.prefills,
+            preemptions=st.preemptions, kernel_launches=launches[impl])
+    want, got = tokens_of(stores["grouped"]), tokens_of(stores["paged"])
+    ratios = []
+    for rid in sorted(want):
+        if want[rid] == got[rid]:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(want[rid], got[rid]))
+                 if a != b)
+        gap, noise = bf16_tie(T, params, model, want[rid][:j])
+        ratios.append(gap / noise if noise > 0 else float("inf"))
+        log("bf16-kv-tie", request=rid, token=j,
+            tokens=f"{want[rid][j]}->{got[rid][j]}", gap=f"{gap:.4g}",
+            bf16_noise=f"{noise:.4g}", gap_over_noise=f"{ratios[-1]:.3f}")
+    log("bf16-kv", path="host", tokens="paged vs grouped",
+        differing=len(ratios),
+        max_gap_over_noise=f"{max(ratios):.3f}" if ratios else "-")
+    far = [r for r in ratios if not r < NEAR_TIE]
+    if far or len(ratios) > MESH_TP_MAX_DIFFERING:
+        raise AssertionError(
+            f"bf16-kv host: {len(ratios)} requests differ between the "
+            f"one-slot and the fused-write kernel (at most "
+            f"{MESH_TP_MAX_DIFFERING}), {len(far)} not at a near-tie")
+    n_call = launches["paged"] // 2
+    snaps, _ = capture_calls(lambda: run("paged", n_req, seed=2), {
+        "one": ("models.paged", "paged_decode_attention", n_call)})
+    args, kw = snaps["one"]
+    res = check_one_slot(
+        f"bf16-kv-host-call-{n_call}",
+        dict(zip(("q", "pool", "lengths", "table", "ks", "vs"), args)),
+        kw["n_heads"], timed=True)
+    return launches, res
+
+
+def bf16_flagship(T, dev, gpu_line) -> int:
+    """[bf16-kv] (iii): the flagship decode step (entry.entry(): 12
+    layers, 12 heads, emb 768, bf16 weights and KV, 256 slots, 2048 pages
+    of 16) at full width, once on "torch" (the gather oracle, JAX's
+    "jnp") and once on "grouped" (the fused-write kernel, one launch a
+    layer) over copies of one state. Logits and the written pools must be
+    finite; the tokens must agree but for near-ties: a slot that differs
+    must have its top-2 gap in the "torch" logits below NEAR_TIE x the
+    largest change of any live logit between the two paths, and at most
+    MESH_TP_MAX_DIFFERING slots may differ. Returns the kernel's
+    launches."""
+    import functools
+
+    from min_llm_inference_tpu_torch.entry import entry
+    from min_llm_inference_tpu_torch.models import model as mm
+    from min_llm_inference_tpu_torch.models.paged import PagedKVState
+    from min_llm_inference_tpu_torch.ops.paged_attention_grouped import (
+        paged_decode_attention_grouped as grouped)
+
+    t0 = time.perf_counter()
+    fn, (params, state, packed, lengths, last) = entry(dev)
+    model, engine = fn.args[:2]
+    setup_s = time.perf_counter() - t0
+    real = mm.greedy_next_token
+    out = {}
+    for impl in ("torch", "grouped"):
+        step = functools.partial(fn.func, model, engine, impl)
+        st = PagedKVState(tuple(p.clone() for p in state.kv_pages),
+                          state.k_scales, state.v_scales)
+        seen = []
+
+        def record(logits, *a, _seen=seen):
+            _seen.append(logits.float().clone())
+            return real(logits, *a)
+
+        grouped.launches = 0
+        mm.greedy_next_token = record
+        try:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            new_st, lens, _, toks = step(params, st, packed, lengths, last)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        finally:
+            mm.greedy_next_token = real
+        if not all(bool(torch.isfinite(p).all()) for p in new_st.kv_pages):
+            raise AssertionError(f"bf16-kv flagship {impl}: pool not finite")
+        if not bool(torch.isfinite(seen[0]).all()):
+            raise AssertionError(f"bf16-kv flagship {impl}: logits not finite")
+        out[impl] = (toks.cpu(), lens.cpu(), seen[0], wall, grouped.launches)
+    (t_tok, t_len, t_log, t_wall, t_n), (g_tok, g_len, g_log, g_wall, g_n) = (
+        out["torch"], out["grouped"])
+    want_n = model.n_layers * engine.n_forward_rounds
+    if t_n != 0 or g_n != want_n:
+        raise AssertionError(f"bf16-kv flagship: grouped launches {t_n} "
+                             f"(torch), {g_n} (grouped), expected 0, {want_n}")
+    live = packed[:, 0].cpu() > 0
+    noise = float((g_log - t_log)[live.to(g_log.device)].abs().max())
+    differ = torch.nonzero((t_tok != g_tok).any(dim=1)).flatten().tolist()
+    ratios = []
+    for b in differ:
+        top = torch.topk(t_log[b], 2)
+        gap = float(top.values[0] - top.values[1])
+        ratios.append(gap / noise if noise > 0 else float("inf"))
+        log("bf16-kv-tie", flagship_slot=b,
+            tokens=f"{t_tok[b, 0].item()}->{g_tok[b, 0].item()}",
+            gap=f"{gap:.4g}", path_noise=f"{noise:.4g}",
+            gap_over_noise=f"{ratios[-1]:.3f}")
+    agree = (t_tok == g_tok).all(dim=1)
+    if not torch.equal(t_len[agree], g_len[agree]):
+        raise AssertionError("bf16-kv flagship: lengths differ where the "
+                             "tokens agree")
+    log("bf16-kv", path="flagship", slots=engine.n_slots,
+        layers=model.n_layers, kv_dtype=engine.kv_dtype,
+        setup_s=f"{setup_s:.2f}", torch_wall_s=f"{t_wall:.4f}",
+        grouped_wall_s=f"{g_wall:.4f}", grouped_launches=g_n,
+        tokens="grouped vs torch", differing=len(differ),
+        max_logit_change=f"{noise:.4g}",
+        max_gap_over_noise=f"{max(ratios):.3f}" if ratios else "-",
+        gpu=f"'{gpu_line}'")
+    far = [r for r in ratios if not r < NEAR_TIE]
+    if far or len(differ) > MESH_TP_MAX_DIFFERING:
+        raise AssertionError(
+            f"bf16-kv flagship: {len(differ)} slots differ (at most "
+            f"{MESH_TP_MAX_DIFFERING}), {len(far)} not at a near-tie")
+    return g_n
+
+
+def bf16_kv_path(T, dev, gpu_line, dot_dir, profile_dir=None) -> dict:
+    """[bf16-kv]: bfloat16 KV at full width. (i) the reference path of
+    phase 5 with kv_dtype="bfloat16" (4096 pages of 32 rows: a 1.07 GB
+    pool): warm run (the capture), timed run (launch counters at 0,
+    fused writes = rounds), eager run token-equal to the graph, and its
+    middle fused-write call replayed against the plain version; (ii)
+    bf16_host; (iii) bf16_flagship. Returns the launches and replayed
+    calls of each kernel."""
+    t0 = time.perf_counter()
+    launches, res, (_, store, wall, _) = main_path(
+        T, dev, gpu_line, dot_dir, profile_dir, kv="bfloat16",
+        label="bf16-kv")
+    host_launches, host_res = bf16_host(T, dev, gpu_line)
+    flagship = bf16_flagship(T, dev, gpu_line)
+    log("bf16-kv", phase_s=f"{time.perf_counter() - t0:.1f}",
+        ref_wall_s=f"{wall:.4f}", requests=len(store.finished))
+    return dict(ref_launches=launches, ref=res, host_launches=host_launches,
+                host=host_res, flagship_launches=flagship)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2715,7 +3021,9 @@ def split_means(split, shape) -> dict:
 
 
 def kernel_entry(name, launches, errs, res, **extra):
-    src, tpu = SOURCES[name]
+    """One kernel's entry of the JSON line; ``name`` may carry a pool kind
+    (``paged_decode_attention_grouped[bf16]``), a row of its own."""
+    src, tpu = SOURCES[name.split("[")[0]]
     return {"name": name, "route": "cuda",
             "source": f"min_llm_inference_tpu_torch/csrc/{src}",
             "replaces": tpu, "launches": launches, "max_abs_err": max(errs),
@@ -2730,7 +3038,7 @@ def main() -> int:
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="also profile one run of each full-width path "
                          "into DIR, once every path has run")
-    ap.add_argument("--only", choices=["mesh-tp"], default=None,
+    ap.add_argument("--only", choices=["mesh-tp", "bf16-kv"], default=None,
                     help="build the kernels and run this stage alone "
                          "(no kernels line, no last line)")
     args = ap.parse_args()
@@ -2760,6 +3068,12 @@ def main() -> int:
     if args.only == "mesh-tp":
         _build.build(_build.SOURCES + _build.HOST_SOURCES)
         mesh_tp_only(T, dev, gpu_line)
+        return 0
+    if args.only == "bf16-kv":
+        _build.build(_build.SOURCES + _build.HOST_SOURCES)
+        dot_dir = tempfile.mkdtemp(prefix="burst-graphs-")
+        bf16_kv_path(T, dev, gpu_line, dot_dir)
+        shutil.rmtree(dot_dir)
         return 0
 
     t0 = time.perf_counter()
@@ -2884,6 +3198,9 @@ def main() -> int:
                 errs["paged_decode_attention_flat"].append(r["max_abs_err"])
     partial_edges(rng, dev, errs)
     attention_edges(rng, dev, errs)
+    # bfloat16 pools, from a generator of their own (the later phases'
+    # random inputs stay as they were)
+    bf16_rand, bf16_errs = bf16_checks(np.random.default_rng(11), dev)
     split = split_times(rng, dev)
     probe_launches, probe_res = check_probe(dev)
     errs["int4_page_self_dot"].append(probe_res["max_abs_err"])
@@ -2893,9 +3210,9 @@ def main() -> int:
                                   for r in (*sample_rand, *sample_edge)]
     switch = sample_switch(rng, dev)
 
-    mode_c_engine = engine_parity(T, dev)
+    mode_c_engine, bf16_engine = engine_parity(T, dev)
     flat_engine = variant_parity(T, dev)
-    one_slot_engine = host_parity(T, dev)
+    one_slot_engine, bf16_host_engine = host_parity(T, dev)
     # ms, plain_ms and bound_ms: one call of each path replayed on its real
     # inputs; launches: each path's timed run
     dot_dir = tempfile.mkdtemp(prefix="burst-graphs-")
@@ -2918,6 +3235,10 @@ def main() -> int:
                                          (ref_wall, ref_warm), args.profile)
     errs["sample_next_token"] += [r["max_abs_err"] for r in s_res.values()]
     weights_path(T, dev, gpu_line, dot_dir, ref_wall, args.profile)
+    bf16 = bf16_kv_path(T, dev, gpu_line, dot_dir, args.profile)
+    bf16_errs["paged_decode_attention_grouped"].append(
+        bf16["ref"]["max_abs_err"])
+    bf16_errs["paged_decode_attention"].append(bf16["host"]["max_abs_err"])
     for run, wall, label in PROFILE_PENDING:
         profile_path(run, args.profile, wall, label)
     PROFILE_PENDING.clear()
@@ -3022,6 +3343,41 @@ def main() -> int:
                [(V_, st_) for V_ in (MAIN["n_vocab"], GPT2_VOCAB)
                 for st_ in SAMPLE_SETTINGS], sample_rand)
            for n in ("ms", "device_ms", "plain_ms", "bound_ms")}))
+    # the four attention kernels at bfloat16 pools: launches on [bf16-kv]
+    # (the grouped kernel in (i), the one-slot kernel in (ii)); dgrid and
+    # flat run on no full-width bf16 path, so theirs are phase 4's
+    br = bf16_rand
+    entries += [
+        kernel_entry(
+            "paged_decode_attention_grouped[bf16]", bf16["ref_launches"],
+            bf16_errs["paged_decode_attention_grouped"], bf16["ref"],
+            launches_on="bf16-kv (i)",
+            run_bound_ms_per_launch=bf16["ref"]["run_bound_ms_per_launch"],
+            host_grouped_launches=bf16["host_launches"]["grouped"],
+            flagship_launches=bf16["flagship_launches"],
+            engine_parity_launches=bf16_engine[
+                "paged_decode_attention_grouped"]
+            + bf16_host_engine["paged_decode_attention_grouped"],
+            **{f"random_{k}_{n}": br[k][n] for k in ("grouped", "mode_c")
+               for n in ("ms", "plain_ms", "bound_ms")}),
+        kernel_entry(
+            "paged_decode_attention[bf16]", bf16["host_launches"]["paged"],
+            bf16_errs["paged_decode_attention"], bf16["host"],
+            launches_on="bf16-kv (ii)",
+            engine_parity_launches=bf16_host_engine["paged_decode_attention"],
+            **{f"random_{n}": br["one_slot"][n]
+               for n in ("ms", "plain_ms", "bound_ms")}),
+        kernel_entry(
+            "dgrid_paged_partial[bf16]", bf16_engine["dgrid_paged_partial"],
+            bf16_errs["dgrid_paged_partial"], br["dgrid"],
+            launches_on="phase 4 engine parity (no full-width bf16 path)"),
+        kernel_entry(
+            "paged_decode_attention_flat[bf16]",
+            bf16_engine["paged_decode_attention_flat"],
+            bf16_errs["paged_decode_attention_flat"], br["flat"],
+            launches_on="phase 4 engine parity (no full-width bf16 path)",
+            **{f"random_ref_{n}": br["flat_ref"][n]
+               for n in ("ms", "plain_ms", "bound_ms")})]
     for e in entries:  # each kernel's launches over every mesh run
         e["mesh_launches"] = mesh_launches.get(e["name"], 0)
     print(json.dumps({"kernels": entries}), flush=True)

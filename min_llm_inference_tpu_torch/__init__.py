@@ -21,8 +21,10 @@ use, DenseEngine); every Pallas kernel of the
 JAX package as a hand-written CUDA kernel under csrc/ (paged attention
 with the fused write and the ring partial, one-slot paged attention, the
 group-view and flat ring partials, the ring flush, the int8 prefill
-quantize + scatter, the int4 probe), and the sampling kernel
-(csrc/sample_next_token.cu); the dp x tp mesh engines (parallel/:
+quantize + scatter, the int4 probe; the attention kernels take float32,
+bfloat16, int8 and packed int4 pools), and the sampling kernel
+(csrc/sample_next_token.cu); the flagship decode step of the JAX
+package's ``entry()`` (entry.py); the dp x tp mesh engines (parallel/:
 ShardedPagedEngine, ShardedNativePagedEngine, ShardedAutonomousEngine,
 ShardedStreamingSession over torch.distributed, one process per rank,
 started by parallel.launch.run_ranks) and their dryrun

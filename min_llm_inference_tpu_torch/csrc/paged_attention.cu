@@ -9,8 +9,8 @@
 //   o[b, h] = softmax_t(q[b, h] . K[t, h] / sqrt(dh) * k_scale) .
 //             (v_scale * V[t, h]),  t < L,
 // as float32, token t read from page table[b, t / P] (clamped into the
-// pool), row t % P, of a float32 or int8 pool [NP, 2, P, D] (int8 with
-// per-page f32 scales). The table may be fragmented: nothing assumes that
+// pool), row t % P, of a float32, bfloat16 or int8 pool [NP, 2, P, D]
+// (int8 with per-page f32 scales). The table may be fragmented: nothing assumes that
 // a row's pages are contiguous. Dead slots (L == 0) read nothing and output
 // exact zeros: the host scheduler never clears a freed slot's table row,
 // so a dead slot's row may hold page ids that now belong to a live slot.
@@ -33,7 +33,7 @@
 extern "C" {
 
 // The launcher. pool_kind: 0 float32, 1 int8 (then k_scales/v_scales [NP]
-// f32 are required). q is float32 (in_bf16 = 0) or bfloat16 (in_bf16 = 1)
+// f32 are required), 3 bfloat16 (no scales). q is float32 (in_bf16 = 0) or bfloat16 (in_bf16 = 1)
 // rows with row stride q_stride (elements) and unit inner stride. out
 // [B, D] float32. Returns the cudaError_t of the launch (0 = launched).
 int mli_paged_attention(const void* q, long long q_stride, const void* pool,

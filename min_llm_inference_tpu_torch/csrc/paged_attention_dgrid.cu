@@ -7,8 +7,8 @@
 //
 // Contract. Under the engine's group allocator a live slot's page-table
 // row is gid*W + [0, W), so its context is ONE contiguous [W, 2, P, D]
-// range of the pool [NP, 2, P, D] (float32 or int8 with per-page f32
-// scales); gid comes from the row's first entry, clamped into the pool.
+// range of the pool [NP, 2, P, D] (float32, bfloat16, or int8 with
+// per-page f32 scales); gid comes from the row's first entry, clamped into the pool.
 // The partial itself (o, m, l over positions < ring_start; the empty
 // partial o = 0, m = -inf, l = 0 for dead slots and ring_start == 0; no
 // pool read for them) is ring_partial.cuh's.
@@ -28,7 +28,7 @@
 extern "C" {
 
 // The launcher. pool_kind: 0 float32, 1 int8 (then k_scales/v_scales are
-// [NP] f32). q is float32 (in_bf16 = 0) or bfloat16 (in_bf16 = 1) rows with
+// [NP] f32), 3 bfloat16 (no scales). q is float32 (in_bf16 = 0) or bfloat16 (in_bf16 = 1) rows with
 // row stride q_stride (elements) and unit inner stride. out [B, D],
 // m_out/l_out [B, H] float32. Returns the cudaError_t of the launch
 // (0 = launched).

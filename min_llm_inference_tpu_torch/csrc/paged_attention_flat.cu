@@ -5,9 +5,9 @@
 //   min_llm_inference_tpu/ops/paged_attention_flat.py ::
 //   paged_decode_attention_flat (kernel body _flat_kernel)
 //
-// Contract. The pool [NP, 2, P, Dk] is float32, int8, or packed int4 (Dk =
-// D/2, unpacked as ops/quant.py packs it), int8/int4 with per-page f32
-// scales. Token t of slot b sits in page table[b, t / P] (clamped into the
+// Contract. The pool [NP, 2, P, Dk] is float32, bfloat16, int8, or packed
+// int4 (Dk = D/2, unpacked as ops/quant.py packs it), int8/int4 with
+// per-page f32 scales. Token t of slot b sits in page table[b, t / P] (clamped into the
 // pool), row t % P. Nothing assumes that a row's pages are contiguous:
 // under overcommit a row is two independent half-groups, and an ungrown
 // row's second half repeats its first (its positions never reach there).
@@ -33,7 +33,8 @@
 extern "C" {
 
 // The launcher. pool_kind: 0 float32, 1 int8, 2 packed int4 (int8
-// storage, Dk = D/2); int8 and int4 take k_scales/v_scales [NP] f32. q is
+// storage, Dk = D/2), 3 bfloat16; int8 and int4 take k_scales/v_scales
+// [NP] f32. q is
 // float32 (in_bf16 = 0) or bfloat16 (in_bf16 = 1) rows with row stride
 // q_stride (elements) and unit inner stride. out [B, D], m_out and l_out
 // [B, H] float32. Returns the cudaError_t of the launch (0 = launched).

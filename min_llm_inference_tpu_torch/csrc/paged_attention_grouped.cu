@@ -7,14 +7,15 @@
 // mode (c).
 //
 // Contract, for each slot b; token t of a slot sits in page table[b, t/P]
-// (clamped into the pool for reads), row t % P, of a float32, int8 or
-// packed int4 pool [NP, 2, P, Dk] (Dk = D/2 for int4; int8/int4 with
-// per-page f32 scales):
+// (clamped into the pool for reads), row t % P, of a float32, bfloat16,
+// int8 or packed int4 pool [NP, 2, P, Dk] (Dk = D/2 for int4; int8/int4
+// with per-page f32 scales):
 //   (a) o[b] = softmax(q . K[0:L]^T / sqrt(dh) * k_scale) . (v_scale * V)
 //       over L = min(lengths[b], W*P) positions, float32;
 //   (b) first quantize the raw new K and V rows against the ALREADY
 //       UPDATED page scales, s > 0 ? clip(rint(x * (1/max(s, 1e-30))),
-//       +-qmax) : 0, pack int4 per head as 16*hi + lo, and write the row in
+//       +-qmax) : 0, pack int4 per head as 16*hi + lo (a bfloat16 pool:
+//       round to nearest even, no scales), and write the row in
 //       place at pool[table[b, (L-1)/P], side, (L-1)%P] when that raw page
 //       id is in [0, NP); then (a), the row just written included;
 //   (c) the pool is read-only and holds positions < ring_start[b] (the
@@ -42,7 +43,7 @@
 extern "C" {
 
 // The launcher. pool_kind: 0 float32, 1 int8, 2 packed int4 (int8 storage,
-// Dk = D/2); int8 and int4 take k_scales/v_scales [NP] f32. q, k_new and
+// Dk = D/2), 3 bfloat16; int8 and int4 take k_scales/v_scales [NP] f32. q, k_new and
 // v_new are float32 (in_bf16 = 0) or bfloat16 (in_bf16 = 1) rows with the
 // given row strides (elements) and unit inner stride; k_new == NULL selects
 // mode (a), ring_start != NULL mode (c), which also writes m_out/l_out

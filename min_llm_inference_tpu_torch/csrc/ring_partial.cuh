@@ -6,8 +6,9 @@
 // compute one function in three modes and differ only in how a slot finds
 // its pages (a Pages policy: GroupPages or TablePages below).
 //
-// What it computes. The pool [NP, 2, P, Dk] (float32, int8, or packed int4
-// with Dk = D/2; int8/int4 with per-page f32 scales). For each slot b with
+// What it computes. The pool [NP, 2, P, Dk] (float32, bfloat16, int8, or
+// packed int4 with Dk = D/2; int8/int4 with per-page f32 scales, the float
+// kinds with none: k_scale = v_scale = 1). For each slot b with
 // context length L > 0 and head h, over positions t < L:
 //   s_t = (q . K_t) / sqrt(dh) * k_scale(page of t)
 //   m = max_t s_t, l = sum_t exp(s_t - m),
@@ -18,7 +19,9 @@
 //   FusedWrite as Full, but first the slot's raw k_new / v_new rows are
 //              quantized against the ALREADY UPDATED page scales
 //              (s > 0 ? clip(rint(x * (1 / max(s, 1e-30))), +-qmax) : 0,
-//              IEEE division; int4 packed per head as 16*hi + lo) and
+//              IEEE division; int4 packed per head as 16*hi + lo; to a
+//              bfloat16 pool rounded to nearest even, as a PyTorch or XLA
+//              cast rounds) and
 //              written in place at table[b, (L-1)/P], row (L-1) % P, when
 //              that raw page id is in [0, NP); o covers the new row (when
 //              it is not, nothing is written and row L-1 is read from the
@@ -51,6 +54,8 @@
 //   * int8 (and int4) bytes become floats without the conversion unit
 //     (a quarter of the float rate): the byte, offset by 128, is placed in
 //     the mantissa of 2^23 by one byte permute and the offset subtracted;
+//     a bfloat16 is the high half of its float32, so a 4-byte word of two
+//     widens by one shift and one mask;
 //   * the fused write never reads back its own global store: the bulk
 //     copies stop before the new row, and the block puts the row's bytes
 //     into the stage itself (generic stores, into bytes no copy writes)
@@ -107,7 +112,8 @@ constexpr int kRingBudget = 64 * 1024;  // bytes of the stage ring
 constexpr int kHeader = 256;            // mbarriers and per-stage page info
 constexpr int kMaxSmem = 232448;        // dynamic shared memory of a block
 
-enum PoolKind { kF32 = 0, kI8 = 1, kI4 = 2 };
+// kind numbers are the launchers' pool_kind: new kinds go at the end
+enum PoolKind { kF32 = 0, kI8 = 1, kI4 = 2, kBF16 = 3 };
 enum Mode { kPartial = 0, kFull = 1, kFusedWrite = 2 };
 
 // The shapes of one launch and its shared-memory layout, made on the host.
@@ -115,7 +121,7 @@ struct Plan {
   int D, H, P, W, NP;
   int row_b;      // bytes of one pool row (Dk elements)
   int head_b;     // bytes of one head's segment of a row
-  int vb;         // bytes a lane reads at once: 16, 4 or 1
+  int vb;         // bytes a lane reads at once: 16, 4, 2 (bf16) or 1 (int8)
   int nch;        // chunks (vb bytes) of one head
   int slices;     // blocks a slot (a cluster when > 1)
   int slice_c;    // chunks of a row one block owns (the last may own fewer)
@@ -162,20 +168,21 @@ inline int align_up(long long n, int a) {
 // False when the kernel does not take the shapes.
 inline bool make_plan(Plan& p, int kind, int D, int H, int P, int W, int NP,
                       bool pool_16b) {
-  if (kind < kF32 || kind > kI4 || D <= 0 || H <= 0 || D % H || P <= 0 ||
+  if (kind < kF32 || kind > kBF16 || D <= 0 || H <= 0 || D % H || P <= 0 ||
       W <= 0 || NP <= 0)
     return false;
   if (kind == kI4 && (D / H) % 2) return false;
-  const int esz = kind == kF32 ? 4 : 1;
+  const int esz = kind == kF32 ? 4 : kind == kBF16 ? 2 : 1;
   p.D = D; p.H = H; p.P = P; p.W = W; p.NP = NP;
   p.row_b = (kind == kI4 ? D / 2 : D) * esz;
   p.head_b = p.row_b / H;
-  p.vb = p.head_b % 16 == 0 ? 16 : p.head_b % 4 == 0 ? 4 : 1;
+  // a chunk never splits an element: a bfloat16 head of odd width reads
+  // 2 bytes at once
+  p.vb = p.head_b % 16 == 0 ? 16 : p.head_b % 4 == 0 ? 4 : esz;
   p.nch = p.head_b / p.vb;
   const int nc = p.row_b / p.vb;
   // features of one chunk, and the chunks one block can own
-  const int fpc = (p.vb < 4 ? p.vb : (kind == kF32 ? p.vb / 4 : p.vb)) *
-                  (kind == kI4 ? 2 : 1);
+  const int fpc = p.vb / esz * (kind == kI4 ? 2 : 1);
   const int max_c = kThreads * (kAcc / fpc);
   p.slices = (nc + max_c - 1) / max_c;
   if (p.slices > kMaxSlices) return false;
@@ -242,14 +249,19 @@ __device__ __forceinline__ float byte_f(unsigned u, int k) {
                    8388736.0f);
 }
 
-// One unit of U bytes (4, or 1 on the narrow path) as floats: x[0, EU) the
-// values (int4: the lo values), x[EU, 2*EU) the int4 hi values. int4 is
-// unpacked as ops/quant.py packs it: hi = round-half-even(byte / 16),
-// lo = byte - 16 * hi (the 1.5 * 2^23 addend rounds to an integer).
+// One unit of U bytes (4, or 2 or 1 on the narrow paths) as floats:
+// x[0, EU) the values (int4: the lo values), x[EU, 2*EU) the int4 hi
+// values. int4 is unpacked as ops/quant.py packs it: hi =
+// round-half-even(byte / 16), lo = byte - 16 * hi (the 1.5 * 2^23 addend
+// rounds to an integer). bfloat16 widens exactly: its bits are the high
+// half of the float32 (element 0 is the low half of the word).
 template <int KIND, int U>
 __device__ __forceinline__ void decode(unsigned w, float* x) {
   if constexpr (KIND == kF32) {
     x[0] = __uint_as_float(w);
+  } else if constexpr (KIND == kBF16) {
+    x[0] = __uint_as_float(w << 16);
+    if constexpr (U == 4) x[1] = __uint_as_float(w & 0xffff0000u);
   } else {
     float f[U];
     if constexpr (U == 4) {
@@ -282,6 +294,8 @@ __device__ __forceinline__ void load_chunk(const unsigned char* p,
     w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
   } else if constexpr (VB == 4) {
     w[0] = *reinterpret_cast<const unsigned*>(p);
+  } else if constexpr (VB == 2) {
+    w[0] = *reinterpret_cast<const unsigned short*>(p);
   } else {
     w[0] = *p;
   }
@@ -333,17 +347,18 @@ __device__ __forceinline__ float quant(float x, float inv, float qmax) {
 template <int KIND, int VB, int MODE, class Pages, bool kSliced>
 __global__ void __launch_bounds__(kThreads, 3)
 attention_kernel(const Args a, const Plan pl) {
-  constexpr bool kQuant = KIND != kF32;
+  constexpr bool kQuant = KIND == kI8 || KIND == kI4;   // per-page scales
   constexpr bool kPacked = KIND == kI4;
   constexpr bool kFused = MODE == kFusedWrite;
+  // bytes of a storage element
+  constexpr int ESZ = KIND == kF32 ? 4 : KIND == kBF16 ? 2 : 1;
   constexpr int U = VB < 4 ? VB : 4;          // bytes decoded at once
   constexpr int NU = VB / U;                  // units per chunk
-  constexpr int EU = KIND == kF32 ? 1 : U;    // storage elements per unit
+  constexpr int EU = U / ESZ;                 // storage elements per unit
   constexpr int NE = NU * EU;                 // storage elements per chunk
   constexpr int FU = kPacked ? 2 * EU : EU;   // features per unit
   constexpr int FPC = NU * FU;                // features per chunk
   constexpr int CPT = kAcc / FPC;             // chunks a thread may own
-  constexpr int ESZ = KIND == kF32 ? 4 : 1;   // bytes of a storage element
 
   // kSliced: pl.slices blocks (a cluster) share a slot, block `rank` owning
   // a slice of slice_c chunks of every row
@@ -451,6 +466,10 @@ attention_kernel(const Args a, const Plan pl) {
         const float x = in_value(src, base + f, a.in_bf16);
         if constexpr (KIND == kF32) {
           w[k] = __float_as_uint(x);
+        } else if constexpr (KIND == kBF16) {
+          w[k] |= static_cast<unsigned>(
+                      __bfloat16_as_ushort(__float2bfloat16_rn(x)))
+                  << (16 * e);
         } else {
           float v = quant(x, inv, kPacked ? 7.0f : 127.0f);
           if constexpr (kPacked)
@@ -465,8 +484,8 @@ attention_kernel(const Args a, const Plan pl) {
   // the new row's K and V bytes of this block's slice, a thread a chunk at a
   // time (the chunks it owns in P.V): quantized once into the pool
   // (to_pool), and into row n-1 of stage s (s >= 0) now or later; int8 and
-  // int4 words are kept in registers between the two, float32 ones (32 a
-  // side) are read again
+  // int4 words are kept in registers between the two, float32 and bfloat16
+  // ones (up to 32 a side) are read again
   unsigned kept[2][kQuant ? CPT : 1][NU];
   auto put_new_row = [&](bool to_pool, int s) {
     if constexpr (kFused) {
@@ -497,6 +516,9 @@ attention_kernel(const Args a, const Plan pl) {
                   make_uint4(w[0], w[1], w[2], w[3]);
             else if constexpr (VB == 4)
               *reinterpret_cast<unsigned*>(st + c * VB) = w[0];
+            else if constexpr (VB == 2)
+              *reinterpret_cast<unsigned short*>(st + c * VB) =
+                  static_cast<unsigned short>(w[0]);
             else
               st[c] = static_cast<unsigned char>(w[0]);
           }
@@ -848,8 +870,8 @@ epilogue:
       const float l = hl[(cs0 + c) / NCH - h_lo];
       float* o = a.out + bD;
       // runs of 4 consecutive features are 16-byte aligned when a unit
-      // holds 4 elements, or a float32 chunk 4 features
-      if constexpr (EU == 4 || (KIND == kF32 && NU == 4)) {
+      // holds 4 elements, or a float32 or bfloat16 chunk 4 units
+      if constexpr (EU == 4 || (!kQuant && NU == 4)) {
 #pragma unroll
         for (int i = 0; i < FPC; i += 4) {
           const int k = i / FU, f = i - k * FU;
@@ -947,7 +969,8 @@ int launch(int kind, const Args& a, int B, int D, int NP, int P, int W,
            int H, cudaStream_t stream) {
   if (B <= 0) return 0;
   if (kind == kI4 && !kWithInt4) return cudaErrorInvalidValue;
-  if (kind != kF32 && (a.k_scales == nullptr || a.v_scales == nullptr))
+  if ((kind == kI8 || kind == kI4) &&
+      (a.k_scales == nullptr || a.v_scales == nullptr))
     return cudaErrorInvalidValue;
   if (MODE == kPartial && (a.ring_start == nullptr || a.m_out == nullptr ||
                            a.l_out == nullptr))
@@ -964,6 +987,9 @@ int launch(int kind, const Args& a, int B, int D, int NP, int P, int W,
     case kI8 * 100 + 16: return run<kI8, 16, MODE, Pages>(a, pl, B, stream);
     case kI8 * 100 + 4: return run<kI8, 4, MODE, Pages>(a, pl, B, stream);
     case kI8 * 100 + 1: return run<kI8, 1, MODE, Pages>(a, pl, B, stream);
+    case kBF16 * 100 + 16: return run<kBF16, 16, MODE, Pages>(a, pl, B, stream);
+    case kBF16 * 100 + 4: return run<kBF16, 4, MODE, Pages>(a, pl, B, stream);
+    case kBF16 * 100 + 2: return run<kBF16, 2, MODE, Pages>(a, pl, B, stream);
     default: break;
   }
   if constexpr (kWithInt4) {

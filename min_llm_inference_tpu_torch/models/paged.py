@@ -16,7 +16,8 @@ what runs; the JAX package's names in brackets:
   * ``torch``   [``jnp``] -- scatter the new row, then gather every slot's
     pages into a contiguous view and run the masked attention oracle;
   * ``paged``   [``pallas``] -- scatter the new row, then the one-slot
-    kernel (ops/paged_attention.py): float32 or int8 pools, no packed int4;
+    kernel (ops/paged_attention.py): float32, bfloat16 or int8 pools, no
+    packed int4;
   * ``grouped`` [``grouped``] -- the fused-write kernel
     (ops/paged_attention_grouped.py): quantize + insert the new row and
     attend in one launch. It reads one page id per page, so fragmented
@@ -204,6 +205,12 @@ def _quantize_block_per_page(x, page_scales, safe_pid, page_size,
     q = quantize_against(x.reshape(M, W_pre, page_size, D),
                          inv[:, :, None, None], qmax)
     return q.reshape(M, S, D)
+
+
+def combine_kv_pools(k_pages, v_pages):
+    """[NP, P, D] K pages and V pages -> one pooled [NP, 2, P, D] (a test
+    and fixture helper)."""
+    return torch.stack([k_pages, v_pages], dim=1)
 
 
 def make_prefill_kv_writer(

@@ -6,7 +6,8 @@ Counterpart of min_llm_inference_tpu/ops/paged_attention.py
 ``PagedEngine``). Same layout:
   q:          [B, D]                f32 or bf16 (D = n_heads * head_dim)
   kv_pages:   [NP, 2, P, D]         one pool, 0 = K rows, 1 = V rows;
-                                    float32 or int8 (no packed int4)
+                                    float32, bfloat16 or int8 (no
+                                    packed int4)
   lengths:    [B] int32             0 = dead slot
   page_table: [B, W] int32          any page ids (fragmented tables)
   k/v_scales: [NP] f32              per-page scales (int8 pools only)
@@ -29,7 +30,7 @@ from ._build import check_contig, check_rows
 from .reference import inv_sqrt
 
 _SOURCE = "paged_attention.cu"
-_POOL_KINDS = {torch.float32: 0, torch.int8: 1}
+_POOL_KINDS = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 3}
 _IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -44,8 +45,9 @@ def paged_decode_attention(q, kv_pages, lengths, page_table, k_scales=None,
     if q.dim() != 2 or kv_pages.dim() != 4:
         raise ValueError("q must be [B, D] and kv_pages [NP, 2, P, D]")
     if kv_pages.shape[-1] != q.shape[-1]:
-        raise ValueError("the one-slot kernel takes float32 or int8 pools "
-                         "of q's width, not packed int4 (use 'grouped')")
+        raise ValueError("the one-slot kernel takes float32, bfloat16 or "
+                         "int8 pools of q's width, not packed int4 (use "
+                         "'grouped')")
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales go together")
     if q.device.type == "cpu":
@@ -102,13 +104,13 @@ def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, n_heads,
         raise ValueError(f"q dtype {q.dtype} not supported by the kernel")
     if kv_pages.dtype not in _POOL_KINDS:
         raise ValueError(f"pool dtype {kv_pages.dtype} not supported by the "
-                         "kernel (float32, int8)")
+                         "kernel (float32, bfloat16, int8)")
     quantized = kv_pages.dtype == torch.int8
     if two != 2 or n_heads <= 0 or D % n_heads:
         raise ValueError("pool shape does not match q / n_heads")
     if quantized != (k_scales is not None):
-        raise ValueError("int8 pools need k_scales and v_scales, float pools "
-                         "take none")
+        raise ValueError("int8 pools need k_scales and v_scales, float and "
+                         "bfloat16 pools take none")
     check_rows("q", q, B, D, q.dtype, dev)
     check_contig("kv_pages", kv_pages, (NP, 2, P, D), kv_pages.dtype, dev)
     check_contig("lengths", lengths, (B,), torch.int32, dev)

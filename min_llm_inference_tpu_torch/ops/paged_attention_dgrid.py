@@ -28,13 +28,13 @@ from ._build import check_contig, check_rows
 from .reference import inv_sqrt
 
 _SOURCE = "paged_attention_dgrid.cu"
-_POOL_KINDS = {torch.float32: 0, torch.int8: 1}
+_POOL_KINDS = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 3}
 _IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def dgrid_paged_partial(
     q,            # [B, D]
-    kv_pages,     # [NP, 2, P, D] pool (float32 or int8)
+    kv_pages,     # [NP, 2, P, D] pool (float32, bfloat16 or int8)
     k_scales,     # [NP] f32 or None
     v_scales,
     ring_start,   # [B] i32, pages hold positions < ring_start
@@ -111,7 +111,7 @@ def _launch(q, kv_pages, k_scales, v_scales, ring_start, lengths, page_table,
         raise ValueError(f"q dtype {q.dtype} not supported by the kernel")
     if kv_pages.dtype not in _POOL_KINDS:
         raise ValueError(f"pool dtype {kv_pages.dtype} not supported by "
-                         "the kernel (float32, int8)")
+                         "the kernel (float32, bfloat16, int8)")
     quantized = kv_pages.dtype == torch.int8
     if two != 2 or D % n_heads:
         raise ValueError("pool shape does not match q / n_heads")

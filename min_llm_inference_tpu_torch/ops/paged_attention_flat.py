@@ -7,9 +7,9 @@ Counterpart of min_llm_inference_tpu/ops/paged_attention_flat.py
 pool is read-only and holds positions < ring_start; the call returns the
 online-softmax partial over them for ``merge_ring_partial``. Token t of a
 slot is read from page ``page_table[b, t // P]``, so any table works: full
-groups, overcommit's half-groups, fragmented rows. float32, int8 and packed
-int4 pools, any number of heads and any table width, rows of at most
-65536 features (rows past 4096 features are cut into feature slices,
+groups, overcommit's half-groups, fragmented rows. float32, bfloat16, int8
+and packed int4 pools, any number of heads and any table width, rows of at
+most 65536 features (rows past 4096 features are cut into feature slices,
 one block each, in a thread block cluster).
 
 The TPU kernel's arguments that chose its DMA runs, VMEM blocks and
@@ -33,7 +33,7 @@ from ._build import check_contig, check_rows
 from .reference import inv_sqrt
 
 _SOURCE = "paged_attention_flat.cu"
-_POOL_KINDS = {torch.float32: 0, torch.int8: 1}
+_POOL_KINDS = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 3}
 _IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -112,7 +112,7 @@ def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, ring_start,
         raise ValueError(f"q dtype {q.dtype} not supported by the kernel")
     if kv_pages.dtype not in _POOL_KINDS:
         raise ValueError(f"pool dtype {kv_pages.dtype} not supported by "
-                         "the kernel (float32, int8, packed int4)")
+                         "the kernel (float32, bfloat16, int8, packed int4)")
     quantized = kv_pages.dtype == torch.int8
     if two != 2 or D % n_heads or Dk != (D // 2 if packed_int4 else D):
         raise ValueError("pool shape does not match q / n_heads / packing")

@@ -23,7 +23,7 @@ from .quant import kv_qmax, pack_int4_rows, quantize_rows_against_pages
 from .reference import inv_sqrt
 
 _SOURCE = "paged_attention_grouped.cu"
-_POOL_KINDS = {torch.float32: 0, torch.int8: 1}
+_POOL_KINDS = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 3}
 _IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -138,7 +138,7 @@ def _launch(q, kv_pages, lengths, page_table, k_scales, v_scales, k_new,
         raise ValueError(f"q dtype {q.dtype} not supported by the kernel")
     if kv_pages.dtype not in _POOL_KINDS:
         raise ValueError(f"pool dtype {kv_pages.dtype} not supported by "
-                         "the kernel (float32, int8, packed int4)")
+                         "the kernel (float32, bfloat16, int8, packed int4)")
     quantized = kv_pages.dtype == torch.int8
     if two != 2 or D % n_heads or Dk != (D // 2 if packed_int4 else D):
         raise ValueError("pool shape does not match q / n_heads / packing")

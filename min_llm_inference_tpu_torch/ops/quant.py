@@ -62,6 +62,17 @@ def unpack_int4(packed, n_heads: int):
     return torch.cat([lo, hi], dim=-1).reshape(*packed.shape[:-1], 2 * dp)
 
 
+def quantize_rows(x):
+    """Per-row symmetric int8: x [..., D] -> (q int8 [..., D], scales f32
+    [...]), scale = absmax / 127 (divided, as a float32 tensor, so that
+    CUDA divides too), q = clip(round(x / scale), +-127); a zero row gets
+    scale 0 and dequantizes to exact zeros."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / torch.full(
+        (), INT8_MAX, dtype=torch.float32, device=xf.device)
+    return quantize_against(xf, inv_scale(scale)[..., None], INT8_MAX), scale
+
+
 def dequantize_rows(q, scales):
     """q: [..., D] int values; scales: [...] f32 -> [..., D] f32."""
     return q.float() * scales[..., None].float()
@@ -94,6 +105,26 @@ def quantize_rows_against_pages(values, flat_idx, page_scales, page_size,
                       0, n_pages - 1)
     return quantize_against(values, inv_scale(page_scales[pid])[:, None],
                             qmax)
+
+
+def quantize_tokens_per_page(values, flat_idx, page_scales, page_size,
+                             valid_pos):
+    """Per-page int8 quantization of paged-KV token rows: a page's scale is
+    set from its row-0 write (the row at an in-slot position that is a
+    page multiple and lands in the pool), every row then quantizes against
+    its page's scale (later rows clip to it).
+
+    values: [N, D]; flat_idx: [N] token index page*P + row (out of range =
+    dropped row); page_scales: [n_pages] f32, not written; valid_pos: [N]
+    the rows' in-slot positions. Returns (q int8 [N, D], the new scales),
+    as the JAX function returns them."""
+    n_pages = page_scales.shape[0]
+    pid = torch.div(flat_idx, page_size, rounding_mode="floor")
+    fresh = (valid_pos % page_size == 0) & (flat_idx < n_pages * page_size)
+    new_scales = update_page_scales(page_scales.clone(), values,
+                                    torch.where(fresh, pid, n_pages))
+    q = quantize_rows_against_pages(values, flat_idx, new_scales, page_size)
+    return q, new_scales
 
 
 # ---- weight-only quantization: {"q", "scale"} leaves ----

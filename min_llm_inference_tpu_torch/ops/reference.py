@@ -48,6 +48,15 @@ def token_pos_embed(tokens, positions, wte, wpe):
             + gather_rows(wpe, safe_pos, dtype))
 
 
+def project_qkv(emb, wq, wk, wv):
+    """The q, k and v projections of emb [..., D] by [D, D] weights, each
+    accumulated in float32 and cast back to emb's dtype (the JAX dot's
+    preferred_element_type, then astype)."""
+    x = emb.float()
+    return tuple(torch.matmul(x, w.float()).to(emb.dtype)
+                 for w in (wq, wk, wv))
+
+
 def masked_softmax(scores, mask):
     """Softmax along the last axis; masked columns get probability 0 and a
     fully masked row is all zeros (not NaN)."""

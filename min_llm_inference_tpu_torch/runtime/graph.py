@@ -22,8 +22,10 @@ Under capture a body is recorded on a stream of its own (one per nesting
 depth), and allocations on it go to a private memory pool kept as long as
 the graph, so that its temporaries keep their addresses for every replay.
 Results that must outlive a body are written into buffers that exist
-before it. torch.profiler sessions come after every capture: a graph
-captured after one faulted when replayed under a later one.
+before it. torch.profiler sessions come after every capture: a graph with
+IF nodes captured after a session that traced the card faults with an
+illegal address when replayed under a later one (torch 2.11 on CUDA 12.8,
+driver 580; tools/graph_profile_repro.py shows when).
 """
 
 from __future__ import annotations

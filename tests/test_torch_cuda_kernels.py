@@ -55,6 +55,14 @@ from min_llm_inference_tpu_torch.ops.sampling import (
     sample_next_token_plain,
 )
 from min_llm_inference_tpu_torch.tools import int4_probe
+from min_llm_inference_tpu_torch.tools.fuzz_draws import (
+    DRAWS,
+    EOF_BIAS,
+    check_finished,
+    draw_id,
+    draw_setup,
+    near_tie,
+)
 from min_llm_inference_tpu_torch.tools.sampling_edges import edge_logits
 import min_llm_inference_tpu_torch as T
 from min_llm_inference_tpu_torch.runtime import autonomous as tauto
@@ -91,6 +99,10 @@ def out_of_range(rng, table, lengths, NP, P):
         table[b, col] = -1 if i % 4 < 2 else NP + 5
 
 
+# the pool dtype of a float kind ("bfloat16": a float32 draw rounded)
+POOL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def grouped_inputs(rng, dev, kv, B, W, P, D, in_dtype, fragmented=False,
                    lengths=None, oob=False):
     """Fused-write inputs: contiguous page groups (or, ``fragmented``, a
@@ -121,10 +133,10 @@ def grouped_inputs(rng, dev, kv, B, W, P, D, in_dtype, fragmented=False,
         pool = rng.standard_normal((NP, 2, P, Dk)).astype(np.float32)
     x = {k: torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32))
          .to(dev, in_dtype) for k in ("q", "k_new", "v_new")}
-    x.update(pool=torch.from_numpy(pool).to(dev),
+    x.update(pool=torch.from_numpy(pool).to(dev, POOL_DTYPES.get(kv)),
              lengths=torch.from_numpy(lengths).to(dev),
              table=torch.from_numpy(table).to(dev), ks=None, vs=None)
-    if kv != "float32":
+    if kv in ("int8", "int4"):
         live = x["lengths"] > 0
         pos = torch.clamp_min(x["lengths"] - 1, 0)
         fresh = decode_fresh_pid(x["table"], pos, live, P, NP)
@@ -136,7 +148,7 @@ def grouped_inputs(rng, dev, kv, B, W, P, D, in_dtype, fragmented=False,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kv", ["float32", "int8", "int4"])
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8", "int4"])
 @pytest.mark.parametrize("H,in_dtype", [(1, torch.bfloat16),
                                         (2, torch.float32)])
 def test_grouped_kernel_matches_plain(cuda, kv, H, in_dtype):
@@ -163,7 +175,7 @@ def test_grouped_kernel_matches_plain(cuda, kv, H, in_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kv", ["float32", "int8", "int4"])
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8", "int4"])
 def test_grouped_kernel_fragmented_table(cuda, kv):
     """The host engines hand the grouped kernel fragmented tables (one page
     id per page, no contiguous run) whose dead rows hold live page ids:
@@ -185,11 +197,26 @@ def test_grouped_kernel_fragmented_table(cuda, kv):
 
 @pytest.mark.cuda
 def test_grouped_kernel_rejects_unsupported_pool(cuda):
+    """A bfloat16 pool is the kernel's (pool bytes after the fused write
+    bit-identical to the plain version's, o close); a float16 pool is
+    not."""
     x = grouped_inputs(np.random.default_rng(3), cuda, "float32", 8, 2, 16,
                        32, torch.float32)
+    rest = (x["lengths"], x["table"])
+    pool_k = x["pool"].to(torch.bfloat16)
+    pool_p = pool_k.clone()
+    before = paged_decode_attention_grouped.launches
+    o_k, _ = paged_decode_attention_grouped(
+        x["q"], pool_k, *rest, k_new=x["k_new"], v_new=x["v_new"])
+    o_p, _ = paged_decode_attention_grouped_plain(
+        x["q"], pool_p, *rest, k_new=x["k_new"], v_new=x["v_new"])
+    assert paged_decode_attention_grouped.launches == before + 1
+    assert torch.equal(pool_k.view(torch.int16), pool_p.view(torch.int16))
+    assert (o_k - o_p).abs().max().item() <= 1e-5 * max(
+        1.0, o_p.abs().max().item())
     with pytest.raises(ValueError):
         paged_decode_attention_grouped(
-            x["q"], x["pool"].to(torch.bfloat16), x["lengths"], x["table"],
+            x["q"], x["pool"].to(torch.float16), *rest,
             k_new=x["k_new"], v_new=x["v_new"])
 
 
@@ -217,11 +244,11 @@ def partial_inputs(rng, dev, kv, B, W, P, D, in_dtype):
         pool = rng.standard_normal((NP, 2, P, Dk)).astype(np.float32)
     x = dict(q=torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32))
              .to(dev, in_dtype),
-             pool=torch.from_numpy(pool).to(dev),
+             pool=torch.from_numpy(pool).to(dev, POOL_DTYPES.get(kv)),
              rs=torch.from_numpy(rs).to(dev),
              lengths=torch.from_numpy(lengths).to(dev),
              table=torch.from_numpy(table).to(dev), ks=None, vs=None)
-    if kv != "float32":
+    if kv in ("int8", "int4"):
         for side in ("ks", "vs"):
             x[side] = torch.from_numpy(
                 rng.uniform(0.01, 0.1, NP).astype(np.float32)).to(dev)
@@ -242,7 +269,7 @@ def assert_partials_close(got, want, lengths, rs):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kv", ["float32", "int8", "int4"])
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8", "int4"])
 @pytest.mark.parametrize("H,D,in_dtype", [(1, 64, torch.bfloat16),
                                           (2, 64, torch.float32),
                                           (12, 96, torch.bfloat16)])
@@ -261,7 +288,7 @@ def test_grouped_mode_c_matches_plain(cuda, kv, H, D, in_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kv", ["float32", "int8"])
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("H,D,in_dtype", [(1, 64, torch.float32),
                                           (4, 64, torch.bfloat16),
                                           (12, 768, torch.bfloat16)])
@@ -358,7 +385,8 @@ def one_slot_inputs(rng, dev, kv, B, W, P, D, in_dtype, oob=False):
         pool = rng.standard_normal((NP, 2, P, D)).astype(np.float32)
     qkv = torch.from_numpy(
         rng.standard_normal((B, 3 * D)).astype(np.float32)).to(dev, in_dtype)
-    x = dict(q=qkv[:, :D], pool=torch.from_numpy(pool).to(dev),
+    x = dict(q=qkv[:, :D],
+             pool=torch.from_numpy(pool).to(dev, POOL_DTYPES.get(kv)),
              lengths=torch.from_numpy(lengths).to(dev),
              table=torch.from_numpy(table).to(dev), ks=None, vs=None)
     if kv == "int8":
@@ -369,7 +397,7 @@ def one_slot_inputs(rng, dev, kv, B, W, P, D, in_dtype, oob=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kv", ["float32", "int8"])
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("B,W,P,H,D,in_dtype", [
     (64, 4, 16, 1, 64, torch.bfloat16),
     (64, 4, 16, 2, 64, torch.float32),
@@ -415,8 +443,14 @@ def test_one_slot_kernel_rejects_unsupported_pools(cuda):
                                *args)
     with pytest.raises(ValueError):     # int8 without scales
         paged_decode_attention(x["q"], x["pool"], *args[:2])
-    with pytest.raises(ValueError):     # bf16 pools are not the kernel's
-        paged_decode_attention(x["q"], x["pool"].to(torch.bfloat16), *args[:2])
+    with pytest.raises(ValueError):     # float16 pools are not the kernel's
+        paged_decode_attention(x["q"], x["pool"].to(torch.float16), *args[:2])
+    # a bfloat16 pool is: o close to the plain version's
+    pool = x["pool"].float().mul_(0.01).to(torch.bfloat16)
+    got = paged_decode_attention(x["q"], pool, *args[:2])
+    want = paged_decode_attention_plain(x["q"], pool, *args[:2])
+    assert (got - want).abs().max().item() <= 1e-5 * max(
+        1.0, want.abs().max().item())
 
 
 def half_group_table(rng, rs, W, P, NP):
@@ -434,7 +468,7 @@ def half_group_table(rng, rs, W, P, NP):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kv", ["float32", "int8", "int4"])
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8", "int4"])
 @pytest.mark.parametrize("H,D,in_dtype,table", [
     (1, 64, torch.bfloat16, "groups"), (2, 64, torch.float32, "half"),
     (12, 96, torch.bfloat16, "groups"), (12, 96, torch.float32, "half"),
@@ -534,7 +568,8 @@ def test_partial_all_dead(cuda, kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,kv", [("dgrid", "int8"), ("flat", "int8"),
-                                     ("flat", "int4")])
+                                     ("flat", "int4"), ("dgrid", "bfloat16"),
+                                     ("flat", "bfloat16")])
 def test_partial_narrow_rows(cuda, kind, kv):
     """Rows that are not a multiple of 16 bytes (emb 36 in 3 heads: 36 int8
     or 18 packed bytes) reach the kernel's plain-load path, with 4- and
@@ -543,6 +578,42 @@ def test_partial_narrow_rows(cuda, kind, kv):
                        8, 36, torch.float32)
     got, want = run_partial(kind, x, 3)
     assert_partials_close(got, want, x["lengths"], x["rs"])
+
+
+@pytest.mark.cuda
+def test_bf16_odd_head_width(cuda):
+    """bfloat16 heads of 5 features (10-byte segments, rows of 30 bytes):
+    2-byte reads and plain loads in every mode of every attention kernel.
+    Fused-write pool bytes bit-identical, outputs and partials close."""
+    x = grouped_inputs(np.random.default_rng(90), cuda, "bfloat16", 24, 4, 8,
+                       15, torch.float32)
+    rest = (x["lengths"], x["table"], None, None)
+    pool_k, pool_p = x["pool"].clone(), x["pool"].clone()
+    o_k, _ = paged_decode_attention_grouped(x["q"], pool_k, *rest, x["k_new"],
+                                            x["v_new"], n_heads=3)
+    o_p, _ = paged_decode_attention_grouped_plain(
+        x["q"], pool_p, *rest, x["k_new"], x["v_new"], n_heads=3)
+    assert torch.equal(pool_k.view(torch.int16), pool_p.view(torch.int16))
+    assert_close(o_k, o_p)
+    assert_close(paged_decode_attention_grouped(x["q"], pool_k, *rest,
+                                                n_heads=3),
+                 paged_decode_attention_grouped_plain(x["q"], pool_k, *rest,
+                                                      n_heads=3))
+    y = one_slot_inputs(np.random.default_rng(91), cuda, "bfloat16", 24, 4, 8,
+                        15, torch.bfloat16)
+    args = (y["q"], y["pool"], y["lengths"], y["table"])
+    assert_close(paged_decode_attention(*args, n_heads=3),
+                 paged_decode_attention_plain(*args, n_heads=3))
+    z = partial_inputs(np.random.default_rng(92), cuda, "bfloat16", 24, 4, 8,
+                       15, torch.float32)
+    for kind in ("dgrid", "flat"):
+        got, want = run_partial(kind, z, 3)
+        assert_partials_close(got, want, z["lengths"], z["rs"])
+    kw = dict(ring_start=z["rs"], n_heads=3)
+    zargs = (z["q"], z["pool"], z["lengths"], z["table"])
+    assert_partials_close(paged_decode_attention_grouped(*zargs, **kw),
+                          paged_decode_attention_grouped_plain(*zargs, **kw),
+                          z["lengths"], z["rs"])
 
 
 @pytest.mark.cuda
@@ -564,10 +635,17 @@ def test_flat_rejects_unsupported_inputs(cuda):
     x = partial_inputs(np.random.default_rng(5), cuda, "int8", 8, 2, 8, 32,
                        torch.float32)
     args = (x["lengths"], x["table"], x["ks"], x["vs"], x["rs"])
-    with pytest.raises(ValueError):     # bf16 pools are not the kernel's
-        paged_decode_attention_flat(x["q"], x["pool"].to(torch.bfloat16),
+    with pytest.raises(ValueError):     # float16 pools are not the kernel's
+        paged_decode_attention_flat(x["q"], x["pool"].to(torch.float16),
                                     x["lengths"], x["table"],
                                     ring_start=x["rs"])
+    # a bfloat16 pool is: o, m, l close to the plain version's
+    pool = x["pool"].float().mul_(0.01).to(torch.bfloat16)
+    got = paged_decode_attention_flat(x["q"], pool, *args[:2],
+                                      ring_start=x["rs"])
+    want = paged_decode_attention_flat_plain(x["q"], pool, *args[:2], None,
+                                             None, x["rs"])
+    assert_partials_close(got, want, x["lengths"], x["rs"])
     with pytest.raises(ValueError):     # int8 without scales
         paged_decode_attention_flat(x["q"], x["pool"], *args[:2],
                                     ring_start=x["rs"])
@@ -1296,3 +1374,64 @@ def test_mesh_tp2_share_device_equals_single_chip(cuda):
         assert r["tokens"] == want
         assert (r["launches"]["dgrid_paged_partial"]
                 == r["stats"]["rounds"] * model.n_layers > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draw", DRAWS, ids=[draw_id(d) for d in DRAWS])
+def test_fuzz_draws_through_kernels(cuda, draw):
+    """tests/test_torch_fuzz_engines.py's draws on the card: AutonomousEngine
+    on its kernels (a CUDA graph a burst; run twice, so the second run
+    replays) and PagedEngine on the one-slot kernel ("paged", but for int4
+    KV, which it does not take: "grouped") equal PagedEngine on the gather
+    oracle ("torch") token for token, every request ending with EOF or at
+    the n_seq cap; each kernel path launches its attention kernel. The
+    kernels sum in another order than the oracle: a request may differ
+    where its first differing token is a near-tie (fuzz_draws.near_tie:
+    the top-2 gap below the logit noise of the pool's format; the draws'
+    small random weights leave top-2 gaps of ~1e-5, below int4's noise of
+    ~1e-4, and 4 of 19 requests of the int4 draw differed on the card), at
+    most a quarter of the requests a path."""
+    s = draw_setup(draw)
+    model = T.ModelConfig(**s["model"])
+    params = T.init_params(s["seed"], model, eof_bias=EOF_BIAS, device=cuda)
+    cfg = T.EngineConfig(**s["engine"])
+    prompts = s["prompts"]
+
+    def tokens_of(eng, runs=1):
+        for _ in range(runs):
+            store = T.ItemStorage()
+            for i, p in enumerate(prompts):
+                store.add_new_item(T.Request(i, list(p)))
+            eng.run(store)
+        return [store.finished[i].tokens for i in range(len(prompts))]
+
+    want = tokens_of(T.PagedEngine(params, model, cfg, attention_impl="torch",
+                                   device=cuda))
+    check_finished(want, prompts, model.n_seq, model.eof_token_id)
+    host_impl = "grouped" if cfg.kv_packed else "paged"
+    for make, label, kernel in (
+            (lambda: T.AutonomousEngine(params, model, cfg, device=cuda,
+                                        attention_impl="grouped",
+                                        **s["auto_kw"]),
+             "autonomous",
+             KERNELS["dgrid" if cfg.attn_dgrid else "grouped"]),
+            (lambda: T.PagedEngine(params, model, cfg, device=cuda,
+                                   attention_impl=host_impl),
+             f"host-{host_impl}",
+             paged_decode_attention if host_impl == "paged"
+             else KERNELS["grouped"])):
+        before = kernel.launches
+        got = tokens_of(make(), runs=2)
+        assert kernel.launches > before, label
+        check_finished(got, prompts, model.n_seq, model.eof_token_id)
+        differ = [i for i in range(len(prompts)) if got[i] != want[i]]
+        assert len(differ) <= len(prompts) // 4, (
+            f"{label}: requests {differ} differ")
+        for i in differ:
+            j = next(k for k, (a, b) in enumerate(zip(got[i], want[i]))
+                     if a != b)
+            gap, noise = near_tie(params, model, want[i][:j], cfg.kv_dtype,
+                                  cfg.page_size)
+            assert gap < noise, (f"{label} request {i} token {j}: "
+                                 f"{got[i][j]} vs {want[i][j]}, top-2 gap "
+                                 f"{gap} not below the noise {noise}")
