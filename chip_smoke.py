@@ -4,6 +4,7 @@
     python3 chip_smoke.py                    # every phase
     python3 chip_smoke.py --profile DIR      # + device-time tables in DIR
     python3 chip_smoke.py --only bf16-kv     # the build and [bf16-kv] alone
+    python3 chip_smoke.py --only bench       # the build and [bench] alone
 
 Phases, one line each; any failure raises and exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -157,7 +158,17 @@ Phases, one line each; any failure raises and exits non-zero:
      requests), and the flagship decode step (entry.entry(): 12 layers,
      bf16 KV, 256 slots) on "torch" and on "grouped" (equal but for
      near-ties);
- 15. the mesh engines (parallel/), after every timed phase, their ranks
+ 15. [bench], the port's entry points at full width (bench_phase), before
+     any profiler session: ``python -m min_llm_inference_tpu_torch.bench``
+     on bench.py's five workloads (no flags, --model gpt2s, --engine host
+     --attention pallas, --ring, --overcommit --pages 3072 --warm-requests
+     2048) and README.md's --engine host --kv-dtype bfloat16 --rounds 32,
+     three timed runs each on the warm run's engine (no capture in a timed
+     run of a graphed engine), each JSON line beside this script's own
+     path's wall for that configuration; the serving bench closed-loop and
+     open-loop at 1000 requests/s; the demo on every backend (parity OK);
+     the scaling harness at tp = 1;
+ 16. the mesh engines (parallel/), after every timed phase, their ranks
      in processes of their own (parallel/launch.run_ranks): [mesh-ref]
      ShardedAutonomousEngine on phase 5's path at world size 1 (NCCL) and
      dp = 2 and 4 on the one card (gloo, share_device; tp = 1, so every
@@ -218,13 +229,9 @@ MAIN = dict(n_vocab=1024, emb_dim=2048, n_seq=128, page_size=32,
 GPT2S = dict(n_vocab=1024, emb_dim=768, n_seq=128, n_layers=12, n_heads=12,
              ffn_dim=3072, page_size=32, n_slots=1024, n_pages=4096,
              requests=2048)
-# bench.py's gpt2s model (its ModelConfig at the default --vocab, --seq
-# and --dtype), and the sha256 of JAX's init_params(PRNGKey(0), ...) of it
-# (models.params.params_checksum; tests/test_torch_random.py recomputes it
-# from the JAX package on the CPU)
-GPT2S_MODEL = dict(n_vocab=1024, emb_dim=768, n_seq=128, n_layers=12,
-                   n_heads=12, ffn_dim=3072, use_output_proj=True,
-                   use_layernorm=True, eof_token_id=1023, dtype="bfloat16")
+# the sha256 of JAX's init_params(PRNGKey(0), ...) of bench.py's gpt2s
+# model (bench.gpt2s_model(); models.params.params_checksum;
+# tests/test_torch_random.py recomputes it from the JAX package on the CPU)
 GPT2S_INIT_SHA256 = (
     "14279b8a512e52850020631dd41b911dafec1b13907117e9b7a267b4ffa79af8")
 # the overcommit path's pool, as ``python bench.py --overcommit --pages
@@ -276,6 +283,24 @@ SWITCH_TOP_K = (16, 50)
 MESH_TP_REQUESTS = 256
 NEAR_TIE = 1.0
 MESH_TP_MAX_DIFFERING = 8
+# the [bench] phase: bench.py's five workloads and README.md's bf16 host
+# command line through ``python -m min_llm_inference_tpu_torch.bench``,
+# each beside the label of this script's own path for that configuration
+# in PATH_WALLS (None: the script has none; its flat path is ``attn_flat``,
+# for which bench.py has no flag)
+BENCH_WORKLOADS = (
+    ((), "main"),
+    (("--model", "gpt2s"), "gpt2s"),
+    (("--engine", "host", "--attention", "pallas"), "host"),
+    (("--ring",), None),
+    (("--overcommit", "--pages", "3072", "--warm-requests", "2048"),
+     "overcommit"),
+    (("--engine", "host", "--kv-dtype", "bfloat16", "--rounds", "32"),
+     "bf16-kv-host-grouped"),
+)
+BENCH_REPEATS = 3
+# the serving bench's open-loop arrival rate (requests/s)
+SERVING_RATE = 1000
 
 
 T0 = time.perf_counter()
@@ -432,6 +457,8 @@ DEVICE_PENDING = []
 # under a later one (tools/graph_profile_repro.py), and the profiler's
 # host cost stays out of every path's wall
 PROFILE_PENDING = []
+# the timed run's wall of each full-width path, by label, for [bench]
+PATH_WALLS = {}
 
 
 def timed_pair(name, res, kernel_fn, plain_fn, bound,
@@ -1343,23 +1370,6 @@ def numpy_init_params(rng, model, eof_bias):
     return tree
 
 
-def bench_params(rng, V, D, S, eof):
-    """bench.py's weights: uniform(0, 1), the EOF row scaled by 1.0001."""
-    wte = rng.random((V, D), dtype=np.float32)
-    wte[eof] *= 1.0001
-    return {"wte": wte, "wpe": rng.random((S, D), dtype=np.float32),
-            "layers": [{"wq": rng.random((D, D), dtype=np.float32),
-                        "wk": rng.random((D, D), dtype=np.float32),
-                        "wv": rng.random((D, D), dtype=np.float32)}]}
-
-
-def make_store(T, prompts):
-    store = T.ItemStorage()
-    for i, p in enumerate(prompts):
-        store.add_new_item(T.Request(i, list(p)))
-    return store
-
-
 def parity(T, dev, model, params, cfg, prompts, label):
     """The engine's kernel path ("grouped") against its gather oracle
     ("torch", which never takes the ring), token for token, each on the
@@ -1368,16 +1378,18 @@ def parity(T, dev, model, params, cfg, prompts, label):
     too), the second replays them and is the one held and counted.
     Returns the generated token count, the kernel path's stats and the
     launches by kernel name of both engines' second runs."""
+    from min_llm_inference_tpu_torch import bench as tbench
+
     outs, stats = {}, None
     kernels = counters()
     launches = {name: 0 for name in kernels}
     for impl in ("grouped", "torch"):
         eng = T.AutonomousEngine(params, model, cfg, attention_impl=impl,
                                  device=dev)
-        eng.run(make_store(T, prompts))
+        eng.run(tbench.make_store(prompts))
         eng.stats = T.BurstStats()
         before = {name: k.launches for name, k in kernels.items()}
-        store = make_store(T, prompts)
+        store = tbench.make_store(prompts)
         eng.run(store)
         for name, k in kernels.items():
             launches[name] += k.launches - before[name]
@@ -1529,6 +1541,8 @@ def host_parity(T, dev) -> tuple:
     Each kernel path must launch its kernel once per round and layer.
     Returns the one-slot kernel's launches at float32 and int8 KV, and
     the kernels' launches at bf16 KV by kernel name."""
+    from min_llm_inference_tpu_torch import bench as tbench
+
     kernels = counters()
     model = T.ModelConfig(n_vocab=256, emb_dim=32, n_seq=64, eof_token_id=255)
     params = T.params_from_numpy(
@@ -1550,7 +1564,7 @@ def host_parity(T, dev) -> tuple:
                                 ("grouped", "paged_decode_attention_grouped")):
                 for k in kernels.values():
                     k.launches = 0
-                store = make_store(T, prompts)
+                store = tbench.make_store(prompts)
                 eng = T.PagedEngine(params, model, cfg, attention_impl=impl,
                                     device=dev)
                 eng.run(store)
@@ -1594,7 +1608,7 @@ def host_parity(T, dev) -> tuple:
                        ("paged", lambda: T.PagedEngine(
                            params, model, cfg, attention_impl="torch",
                            device=dev))):
-        store = make_store(T, prompts)
+        store = tbench.make_store(prompts)
         make().run(store)
         outs[name] = [store.finished[i].tokens for i in range(len(prompts))]
     if outs["dense"] != outs["paged"]:
@@ -1627,10 +1641,10 @@ def counters():
 
 def make_prompts(n, seed, V):
     """bench.py's request stream: prompts uniform in [1, 64] over the
-    vocabulary without EOF."""
-    rng = np.random.default_rng(seed)
-    return [rng.integers(0, V - 1, int(rng.integers(1, 65))).tolist()
-            for _ in range(n)]
+    vocabulary without EOF, from a generator of ``seed``."""
+    from min_llm_inference_tpu_torch.bench import draw_prompts
+
+    return draw_prompts(np.random.default_rng(seed), n, 64, V)
 
 
 def drive(T, dev, params, model, cfg, n, seed, engine_kw, count_syncs=False,
@@ -1641,7 +1655,9 @@ def drive(T, dev, params, model, cfg, n, seed, engine_kw, count_syncs=False,
     with ``engine_kw``. With count_syncs, PyTorch's sync debug mode records
     every device sync of the run; the engine gets ``syncs_seen`` (those
     made from the package's code) and ``sync_sites``."""
-    store = make_store(T, make_prompts(n, seed, model.n_vocab))
+    from min_llm_inference_tpu_torch import bench as tbench
+
+    store = tbench.make_store(make_prompts(n, seed, model.n_vocab))
     if engine is not None:
         eng = engine
         eng.stats = T.BurstStats()
@@ -1756,20 +1772,6 @@ def check_outputs(store, n_req, S, V):
     return total
 
 
-def ref_model(T):
-    V, D, S = MAIN["n_vocab"], MAIN["emb_dim"], MAIN["n_seq"]
-    return T.ModelConfig(n_vocab=V, emb_dim=D, n_seq=S, eof_token_id=V - 1,
-                         dtype="bfloat16")
-
-
-def ref_params(T, dev):
-    """bench.py's reference weights (bench_params) as bf16 on the card."""
-    model = ref_model(T)
-    V, D, S = model.n_vocab, model.emb_dim, model.n_seq
-    return T.params_from_numpy(
-        bench_params(np.random.default_rng(0), V, D, S, V - 1), model, dev)
-
-
 def ref_engine(**cfg_kw) -> tuple:
     """Phase 5's engine config (under the options ``cfg_kw``) and engine
     options, as dicts."""
@@ -1801,11 +1803,13 @@ def ref_model_run(T, dev, label, dot_dir, params=None, engine_extra=None,
     sampling options), on bench.py's weights or ``params``: (model, cfg,
     run(n, seed, count_syncs, capture), the warm run's (host syncs,
     bursts)), after the warm run's sync check."""
-    model = ref_model(T)
+    from min_llm_inference_tpu_torch import bench as tbench
+
+    model = tbench.ref_model()
     cfg_d, engine_kw = ref_engine(**cfg_kw)
     cfg = T.EngineConfig(**cfg_d)
     if params is None:
-        params = ref_params(T, dev)
+        params = tbench.ref_params(dev)
     engine_kw.update(engine_extra or {})
     run = auto_runner(T, dev, params, model, cfg, engine_kw, dot_dir)
     warm = warm_and_check_syncs(run, label)
@@ -1845,6 +1849,7 @@ def main_path(T, dev, gpu_line, dot_dir, profile_dir=None, kv="int4",
     D, S, n_req = model.emb_dim, model.n_seq, MAIN["requests"]
     eng, store, wall, counts = timed_run(run, n_req, lambda st: {
         "paged_decode_attention_grouped": st.rounds * model.n_layers}, label)
+    PATH_WALLS[label] = wall
     launches = counts["paged_decode_attention_grouped"]
     st = eng.stats
     total = check_outputs(store, n_req, S, model.n_vocab)
@@ -1885,10 +1890,12 @@ def main_path(T, dev, gpu_line, dot_dir, profile_dir=None, kv="int4",
 def gpt2s_path(T, dev, gpu_line, dot_dir, profile_dir=None):
     """Phase 6: the gpt2s path at full width. Returns (launches by kernel
     name of the timed run, {kernel name: replayed-call result})."""
+    from min_llm_inference_tpu_torch import bench as tbench
+
     g = GPT2S
     V, S, L = g["n_vocab"], g["n_seq"], g["n_layers"]
     n_req = g["requests"]
-    model = T.ModelConfig(**GPT2S_MODEL)
+    model = tbench.gpt2s_model()
     cfg = T.EngineConfig(**gpt2s_engine())
     from min_llm_inference_tpu_torch.models.params import params_checksum
 
@@ -1914,6 +1921,7 @@ def gpt2s_path(T, dev, gpu_line, dot_dir, profile_dir=None):
         "dgrid_paged_partial": st.rounds * L,
         "ring_flush": (st.bursts - st.skipped) * L,
         "prefill_quant_scatter": st.prefills * L}, "gpt2s")
+    PATH_WALLS["gpt2s"] = wall
     st = eng.stats
     total = check_outputs(store, n_req, S, V)
     log("gpt2s", requests=n_req, generated=total, wall_s=f"{wall:.4f}",
@@ -1962,6 +1970,7 @@ def host_path(T, dev, gpu_line, profile_dir=None):
     kernel, the reference-parity model and request stream of phase 5 with
     int8 paged KV. Returns (launches by kernel name of the timed run,
     {kernel name: replayed-call result})."""
+    from min_llm_inference_tpu_torch import bench as tbench
     from min_llm_inference_tpu_torch.utils.profiling import (
         get_global_phase_stats,
     )
@@ -1969,14 +1978,12 @@ def host_path(T, dev, gpu_line, profile_dir=None):
     V, D, S, P = (MAIN["n_vocab"], MAIN["emb_dim"], MAIN["n_seq"],
                   MAIN["page_size"])
     n_req = MAIN["requests"]
-    model = T.ModelConfig(n_vocab=V, emb_dim=D, n_seq=S, eof_token_id=V - 1,
-                          dtype="bfloat16")
+    model = tbench.ref_model()
     cfg = T.EngineConfig(n_slots=MAIN["n_slots"], n_pages=MAIN["n_pages"],
                          n_forward_rounds=16, page_size=P, init_num_pages=2,
                          kv_dtype="int8", max_prefill_batch=128,
                          decode_ring=False, subbursts=2)
-    params = T.params_from_numpy(
-        bench_params(np.random.default_rng(0), V, D, S, V - 1), model, dev)
+    params = tbench.ref_params(dev)
 
     def run(n, seed, count_syncs=False, engine_cls=T.PagedEngine):
         return drive(T, dev, params, model, cfg, n, seed,
@@ -1999,6 +2006,7 @@ def host_path(T, dev, gpu_line, profile_dir=None):
     phases = get_global_phase_stats()
     phases.reset()
     eng, store, wall = run(n_req, seed=2)
+    PATH_WALLS["host"] = wall
     host_s = phase_seconds(phases)
     launches = {name: k.launches for name, k in kernels.items()}
     st = eng.stats
@@ -2129,6 +2137,7 @@ def overcommit_path(T, dev, gpu_line, dot_dir, profile_dir=None):
     eng, store, wall, launches = timed_run(run, MAIN["requests"], lambda st: {
         "paged_decode_attention_grouped": st.rounds * L,
         "prefill_quant_scatter": st.prefills * L}, "overcommit")
+    PATH_WALLS["overcommit"] = wall
     st = eng.stats
     total = check_outputs(store, MAIN["requests"], model.n_seq, model.n_vocab)
     units = cfg.n_pages // (cfg.pages_per_slot(model.n_seq) // 2)
@@ -2236,11 +2245,13 @@ def main_sample_path(T, dev, gpu_line, dot_dir, greedy, profile_dir=None):
     main path's (wall, warm-run host syncs and bursts). Returns (launches
     by kernel name of the timed run, the replayed sampling call's results
     at the reference width and at GPT-2's vocabulary)."""
+    from min_llm_inference_tpu_torch import bench as tbench
+
     # the JAX package's init_params recipe (uniform(-1, 1) * 0.02) for the
     # reference model: bench.py's uniform(0, 1) weights make the logit gaps
     # so wide that Gumbel noise at T = 1.5 never moves an argmax (seeds 7
     # and 8 gave the same 2048 requests), and the path would be greedy
-    params = T.init_params(0, ref_model(T), device=dev)
+    params = T.init_params(0, tbench.ref_model(), device=dev)
     model, cfg, run, warm = ref_model_run(
         T, dev, "main-sample", dot_dir, params=params, engine_extra=SAMPLE_KW,
         kv_dtype="int4", decode_ring=False)
@@ -2335,9 +2346,11 @@ def weights_path(T, dev, gpu_line, dot_dir, main_wall,
     with the same path on the dense bf16 tree dequantize_weight makes of
     the same leaves; one [weights] line each with both walls and the
     greedy main path's."""
+    from min_llm_inference_tpu_torch import bench as tbench
+
     n_req = MAIN["requests"]
     for mode in ("int8", "fp8"):
-        qtree = T.quantize_params(ref_params(T, dev), mode)
+        qtree = T.quantize_params(tbench.ref_params(dev), mode)
         out = {}
         for form, tree in (("quantized", qtree),
                            ("dense", dequantized(qtree))):
@@ -2515,7 +2528,9 @@ def mesh_tp_setup(T, dev):
     float32 with init_params(0) weights, without the drain downshift (the
     JAX mesh engine has none), MESH_TP_REQUESTS requests, and the
     single-chip engine's tokens on them (the oracle)."""
-    model_d = dict(GPT2S_MODEL, dtype="float32")
+    from min_llm_inference_tpu_torch import bench as tbench
+
+    model_d = dataclasses.asdict(tbench.gpt2s_model(dtype="float32"))
     cfg = gpt2s_engine()
     kw = dict(max_new_per_burst=512, bursts_per_chunk=6,
               request_capacity=MESH_TP_REQUESTS)
@@ -2622,7 +2637,7 @@ def mesh_tp_only(T, dev, gpu_line):
 
 
 def mesh_stage(T, dev, gpu_line, ref_store):
-    """Phase 15: the mesh engines (parallel/), their ranks spawned by
+    """Phase 16: the mesh engines (parallel/), their ranks spawned by
     parallel/launch.run_ranks after every timed phase (the libraries built
     in phase 2). [mesh-ref]: ShardedAutonomousEngine on the main path
     (phase 5's model, weights, engine and 2048 requests) at world size 1
@@ -2636,16 +2651,16 @@ def mesh_stage(T, dev, gpu_line, ref_store):
     under NCCL where there are two, else a line that says why not.
     [mesh-dryrun]: the package's dryrun at N = 4. Returns the launches of
     every mesh run by kernel name."""
+    from min_llm_inference_tpu_torch import bench as tbench
     from min_llm_inference_tpu_torch.dryrun import dryrun
     from min_llm_inference_tpu_torch.parallel import run_ranks, workers
 
-    rmodel = ref_model(T)
+    rmodel = tbench.ref_model()
     # the main path's engine (phase 5)
     ref_cfg, ref_kw = ref_engine(kv_dtype="int4", decode_ring=False)
     V = rmodel.n_vocab
     ref_prompts = make_prompts(MAIN["requests"], 2, V)
-    ref_tree = bench_params(np.random.default_rng(0), V, rmodel.emb_dim,
-                            rmodel.n_seq, V - 1)
+    ref_tree = tbench.bench_tree(np.random.default_rng(0), rmodel)
     ref_want = tokens_of(ref_store)
     ref_call = ("engine_run", dict(
         kind="auto", model=dataclasses.asdict(rmodel), engine=ref_cfg,
@@ -2814,15 +2829,17 @@ def bf16_host(T, dev, gpu_line):
     model's bf16 noise there), in at most MESH_TP_MAX_DIFFERING requests.
     The middle one-slot call is replayed against the plain version.
     Returns ({impl: launches}, the replayed call's result)."""
+    from min_llm_inference_tpu_torch import bench as tbench
+
     V, D, S, P = (MAIN["n_vocab"], MAIN["emb_dim"], MAIN["n_seq"],
                   MAIN["page_size"])
     n_req = MAIN["requests"]
-    model = ref_model(T)
+    model = tbench.ref_model()
     cfg = T.EngineConfig(n_slots=MAIN["n_slots"], n_pages=MAIN["n_pages"],
                          n_forward_rounds=32, page_size=P, init_num_pages=2,
                          kv_dtype="bfloat16", max_prefill_batch=128,
                          decode_ring=False, subbursts=2)
-    params = ref_params(T, dev)
+    params = tbench.ref_params(dev)
     kname = {"grouped": "paged_decode_attention_grouped",
              "paged": "paged_decode_attention"}
 
@@ -2837,6 +2854,7 @@ def bf16_host(T, dev, gpu_line):
         for k in kernels.values():
             k.launches = 0
         eng, store, wall = run(impl, n_req, seed=2)
+        PATH_WALLS[f"bf16-kv-host-{impl}"] = wall
         got = {name: k.launches for name, k in kernels.items() if k.launches}
         st = eng.stats
         if got != {kname[impl]: st.rounds * model.n_layers}:
@@ -2989,6 +3007,111 @@ def bf16_kv_path(T, dev, gpu_line, dot_dir, profile_dir=None) -> dict:
                 host=host_res, flagship_launches=flagship)
 
 
+def bench_phase(gpu_line) -> None:
+    """Phase 15, [bench]: the port's entry points at full width, in this
+    process, after every other timed path and before any profiler
+    session (graphs captured after one can fault when replayed under a
+    later one). ``python -m min_llm_inference_tpu_torch.bench`` on each
+    of BENCH_WORKLOADS with BENCH_REPEATS timed runs, all on one engine
+    after its warm run: on the graphed engine the timed runs must capture
+    nothing. One [bench] line each: bench.py's JSON line, the card, the
+    captures, every timed wall, the last timed run's host seconds by
+    engine phase, the kernel launches of the whole workload (warm and
+    timed runs) and the timed wall of this script's own path for the same
+    configuration (PATH_WALLS). Then the serving bench
+    closed-loop and open-loop at SERVING_RATE requests/s (every request
+    finished), the demo on every backend (every parity line OK) and the
+    scaling harness at tp = 1 (one line). Each workload's engine and
+    graphs are freed before the next."""
+    import contextlib
+    import gc
+    import io
+
+    from min_llm_inference_tpu_torch import bench as tbench
+    from min_llm_inference_tpu_torch.examples import (
+        demo_engine,
+        scaling_bench,
+    )
+    from min_llm_inference_tpu_torch.tools import serving_bench
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    kernels = counters()
+    for flags, path in BENCH_WORKLOADS:
+        args = tbench.parser().parse_args(
+            [*flags, "--repeats", str(BENCH_REPEATS)])
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        result, extra = tbench.run(args)
+        took = time.perf_counter() - t0
+        free()
+        graphed = args.engine == "auto"
+        S = args.seq
+        totals = [r["total_tokens"] for r in extra["runs"]]
+        path_wall = PATH_WALLS.get(path)
+        log("bench", workload=f"'{' '.join(flags) or '(no flags)'}'",
+            gpu=f"'{gpu_line}'", graphed="yes" if graphed else "no",
+            warm_captures=extra["warm_captures"],
+            timed_captures=extra["timed_captures"],
+            walls_s=",".join(f"{r['wall']:.4f}" for r in extra["runs"]),
+            tokens=",".join(map(str, totals)),
+            path=path or "-",
+            path_wall_s=f"{path_wall:.4f}" if path_wall else "-",
+            workload_s=f"{took:.1f}",
+            last_run_phase_s=",".join(
+                f"{n}:{v['seconds']:.4f}"
+                for n, v in extra["phase_stats"].items()),
+            launches=",".join(f"{n}:{k.launches}" for n, k in
+                              kernels.items() if k.launches) or "-",
+            line=json.dumps(result))
+        if graphed and (extra["timed_captures"] or not extra["warm_captures"]):
+            raise AssertionError(
+                f"bench {flags}: {extra['warm_captures']} warm and "
+                f"{extra['timed_captures']} timed captures (the timed runs "
+                "must replay the warm run's graphs)")
+        if not all(0 < t <= args.requests * (S - 1) for t in totals):
+            raise AssertionError(f"bench {flags}: token totals {totals}")
+
+    for rate in (None, SERVING_RATE):
+        argv = [] if rate is None else ["--arrival-rate", str(rate)]
+        args = serving_bench.parser().parse_args(argv)
+        result, done = serving_bench.serve(args, *serving_bench.resolve(args))
+        free()
+        n_gen = sum(len(r.tokens) - r.prompt_len for r in done.values())
+        log("bench", entry="serving", arrivals=(
+            "closed-loop" if rate is None else f"open-loop-{rate}"),
+            gpu=f"'{gpu_line}'", requests=len(done),
+            line=json.dumps(result))
+        if sorted(done) != list(range(args.requests)) or (
+                n_gen != result["total_tokens"]):
+            raise AssertionError(f"serving {argv}: {len(done)} of "
+                                 f"{args.requests} requests finished")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        demo_engine.main(["--backend", "all"])
+    free()
+    lines = out.getvalue().strip().splitlines()
+    for ln in lines:
+        log("demo", line=f"'{ln}'")
+    parity = [ln for ln in lines if "token parity" in ln]
+    if len(parity) != 4 or not all(ln.endswith(": OK") for ln in parity):
+        raise AssertionError(f"demo: parity lines {parity}")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        scaling_bench.main(["--tp", "1"])
+    lines = out.getvalue().strip().splitlines()
+    for ln in lines:
+        log("scaling", gpu=f"'{gpu_line}'", line=f"'{ln}'")
+    if len(lines) != torch.cuda.device_count().bit_length() or not lines[
+            0].startswith("devices= 1 (dp=1 x tp=1)"):
+        raise AssertionError(f"scaling: lines {lines}")
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -3038,7 +3161,8 @@ def main() -> int:
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="also profile one run of each full-width path "
                          "into DIR, once every path has run")
-    ap.add_argument("--only", choices=["mesh-tp", "bf16-kv"], default=None,
+    ap.add_argument("--only", choices=["mesh-tp", "bf16-kv", "bench"],
+                    default=None,
                     help="build the kernels and run this stage alone "
                          "(no kernels line, no last line)")
     args = ap.parse_args()
@@ -3068,6 +3192,10 @@ def main() -> int:
     if args.only == "mesh-tp":
         _build.build(_build.SOURCES + _build.HOST_SOURCES)
         mesh_tp_only(T, dev, gpu_line)
+        return 0
+    if args.only == "bench":
+        _build.build(_build.SOURCES + _build.HOST_SOURCES)
+        bench_phase(gpu_line)
         return 0
     if args.only == "bf16-kv":
         _build.build(_build.SOURCES + _build.HOST_SOURCES)
@@ -3239,6 +3367,7 @@ def main() -> int:
     bf16_errs["paged_decode_attention_grouped"].append(
         bf16["ref"]["max_abs_err"])
     bf16_errs["paged_decode_attention"].append(bf16["host"]["max_abs_err"])
+    bench_phase(gpu_line)
     for run, wall, label in PROFILE_PENDING:
         profile_path(run, args.profile, wall, label)
     PROFILE_PENDING.clear()

@@ -28,7 +28,11 @@ package's ``entry()`` (entry.py); the dp x tp mesh engines (parallel/:
 ShardedPagedEngine, ShardedNativePagedEngine, ShardedAutonomousEngine,
 ShardedStreamingSession over torch.distributed, one process per rank,
 started by parallel.launch.run_ranks) and their dryrun
-(``python -m min_llm_inference_tpu_torch.dryrun N``).
+(``python -m min_llm_inference_tpu_torch.dryrun N``); and the entry points
+of the JAX package's scripts, with their command lines: the headline
+bench (``python -m min_llm_inference_tpu_torch.bench``), the serving
+bench (tools/serving_bench.py), the demo and the scaling harness
+(examples/).
 """
 
 from .config import EngineConfig, ModelConfig, resolve_device

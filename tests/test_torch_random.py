@@ -138,11 +138,13 @@ def test_init_params_bit_equal(model, dtype, seed, eof_bias):
 def test_gpt2s_init_checksum_is_jax():
     """The checksum chip_smoke.py holds the card's ``init_params(0,
     gpt2s)`` to is the one of JAX's ``init_params(PRNGKey(0), ...)`` for
-    bench.py's gpt2s model, computed here on the CPU."""
+    bench.py's gpt2s model (the port bench's gpt2s_model()), computed here
+    on the CPU."""
     sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
     import chip_smoke
+    from min_llm_inference_tpu_torch.bench import gpt2s_model
 
-    model = JModelConfig(**chip_smoke.GPT2S_MODEL)
+    model = JModelConfig(**dataclasses.asdict(gpt2s_model()))
     want = jinit(jax.random.PRNGKey(0), model)
     tree = T.params_from_numpy(jax.tree_util.tree_map(np.asarray, want),
                                T.ModelConfig(**dataclasses.asdict(model)),
