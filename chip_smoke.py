@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile DIR      # + device-time tables in DIR
     python3 chip_smoke.py --only bf16-kv     # the build and [bf16-kv] alone
     python3 chip_smoke.py --only bench       # the build and [bench] alone
+    python3 chip_smoke.py --only quality     # the build and [quality] alone
 
 Phases, one line each; any failure raises and exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -168,7 +169,18 @@ Phases, one line each; any failure raises and exits non-zero:
      path's wall for that configuration; the serving bench closed-loop and
      open-loop at 1000 requests/s; the demo on every backend (parity OK);
      the scaling harness at tp = 1;
- 16. the mesh engines (parallel/), after every timed phase, their ranks
+ 16. [quality], the quantization-quality evidence at full size
+     (quality_phase), after [bench] and before any profiler session:
+     ``python -m min_llm_inference_tpu_torch.tools.quality_evidence``'s
+     8L/512D model trained 1500 steps of 64 sequences on the card (float32,
+     TF32 off), its perplexity at float32, int8 and int4 KV and at int8
+     weights with int8 KV on 840 x 127 predicted tokens through the paged
+     harness, and the 12L/768D GPT-2 import smoke; it must reach ppl_ref <
+     15, |int8 ΔPPL| <= 0.1 and a finite smoke. On the trained model's own
+     K/V rows (two eval steps, last layer, int8 and int4) the fused-write
+     kernel's pool bytes and scales must equal the plain quantizer's and
+     its attention the gather oracle's within 1e-4;
+ 17. the mesh engines (parallel/), after every timed phase, their ranks
      in processes of their own (parallel/launch.run_ranks): [mesh-ref]
      ShardedAutonomousEngine on phase 5's path at world size 1 (NCCL) and
      dp = 2 and 4 on the one card (gloo, share_device; tp = 1, so every
@@ -301,6 +313,12 @@ BENCH_WORKLOADS = (
 BENCH_REPEATS = 3
 # the serving bench's open-loop arrival rate (requests/s)
 SERVING_RATE = 1000
+# the [quality] phase: the quality tool's training steps (its default),
+# and the eval steps whose K/V rows of the trained model's last layer the
+# fused-write kernel writes beside the plain quantizer: a page's row 0
+# (it sets the page's scale) and a row inside the page
+QUALITY_STEPS = 1500
+QUALITY_KV_STEPS = (96, 103)
 
 
 T0 = time.perf_counter()
@@ -2423,7 +2441,8 @@ def capture_calls(run, targets):
     try:
         result = run()
     finally:
-        for mod, attr, real, _ in patched:
+        # last wrapped first: two targets may wrap one attribute
+        for mod, attr, real, _ in reversed(patched):
             setattr(mod, attr, real)
     missing = [label for label in targets if label not in snaps]
     if missing:
@@ -2637,7 +2656,7 @@ def mesh_tp_only(T, dev, gpu_line):
 
 
 def mesh_stage(T, dev, gpu_line, ref_store):
-    """Phase 16: the mesh engines (parallel/), their ranks spawned by
+    """Phase 17: the mesh engines (parallel/), their ranks spawned by
     parallel/launch.run_ranks after every timed phase (the libraries built
     in phase 2). [mesh-ref]: ShardedAutonomousEngine on the main path
     (phase 5's model, weights, engine and 2048 requests) at world size 1
@@ -3112,6 +3131,144 @@ def bench_phase(gpu_line) -> None:
         raise AssertionError(f"scaling: lines {lines}")
 
 
+def check_trained_kv_rows(params, cfg, eval_tokens, kv) -> None:
+    """The fused-write kernel on the trained model's own K/V rows: the
+    teacher-forced harness (utils/quality.py, the plain path whose ΔPPL
+    [quality] reports) runs over the first max(QUALITY_KV_STEPS) + 2 eval
+    tokens at ``kv``; the arguments of its K/V write and attention at each
+    of QUALITY_KV_STEPS, last layer, are copied before the write. The
+    kernel then writes the same rows into the same pool (its page scales
+    updated first, as the engine does) and attends: pool bytes and scales
+    must equal the plain quantizer's (_write_kv_tokens), o the gather
+    oracle's within 1e-4 x max(1, |o|). One [kernel] line a step."""
+    from min_llm_inference_tpu_torch.models.paged import (
+        _write_kv_tokens,
+        torch_paged_attend,
+    )
+    from min_llm_inference_tpu_torch.ops.paged_attention_grouped import (
+        paged_decode_attention_grouped as kernel,
+    )
+    from min_llm_inference_tpu_torch.ops.quant import (
+        kv_qmax,
+        update_page_scales,
+    )
+    from min_llm_inference_tpu_torch.tools.quality_evidence import (
+        eval_engine_config,
+    )
+    from min_llm_inference_tpu_torch.utils.quality import teacher_forced_nll
+
+    eng = dataclasses.replace(
+        eval_engine_config(eval_tokens.shape[0], cfg.n_seq), kv_dtype=kv)
+    toks = np.ascontiguousarray(eval_tokens[:, :max(QUALITY_KV_STEPS) + 2])
+    lengths = np.full(toks.shape[0], toks.shape[1], np.int32)
+    layer = cfg.n_layers - 1
+    targets = {}
+    for step in QUALITY_KV_STEPS:
+        ix = step * cfg.n_layers + layer
+        targets[f"write-{step}"] = ("utils.quality", "_write_kv_tokens", ix)
+        targets[f"attend-{step}"] = ("utils.quality", "torch_paged_attend",
+                                     ix)
+    snaps, _ = capture_calls(
+        lambda: teacher_forced_nll(params, cfg, eng, toks, lengths), targets)
+    packed = kv == "int4"
+    for step in QUALITY_KV_STEPS:
+        (pool, ks, vs, flat_idx, k, v, fresh), _ = snaps[f"write-{step}"]
+        (written, _, _, q, ctx_len, table, P, H), _ = snaps[f"attend-{step}"]
+        pool_p, ks_p, vs_p = pool.clone(), ks.clone(), vs.clone()
+        _write_kv_tokens(pool_p, ks_p, vs_p, flat_idx, k, v, fresh,
+                         n_heads=H)
+        o_p = torch_paged_attend(pool_p, ks_p, vs_p, q, ctx_len, table, P, H)
+        pool_k, ks_k, vs_k = pool.clone(), ks.clone(), vs.clone()
+        update_page_scales(ks_k, k, fresh, kv_qmax(packed))
+        update_page_scales(vs_k, v, fresh, kv_qmax(packed))
+        o_k, _ = kernel(q, pool_k, ctx_len, table, ks_k, vs_k, k, v,
+                        n_heads=H, packed_int4=packed)
+        torch.cuda.synchronize()
+        name = f"quality-trained-{kv}-step{step}-layer{layer}"
+        if not torch.equal(pool_p, written):
+            raise AssertionError(f"{name}: the replayed plain write differs "
+                                 "from the harness's")
+        if not (torch.equal(pool_k, pool_p) and torch.equal(ks_k, ks_p)
+                and torch.equal(vs_k, vs_p)):
+            bad = (pool_k != pool_p).nonzero()[:5].tolist()
+            raise AssertionError(f"{name}: pool bytes or scales differ "
+                                 f"(pool at {bad})")
+        err = (o_k - o_p).abs().max().item()
+        lim = 1e-4 * max(1.0, o_p.abs().max().item())
+        if not err <= lim:
+            raise AssertionError(f"{name}: max |o_kernel - o_plain| {err} "
+                                 f"> {lim}")
+        log("kernel", case=name, pool_bytes="identical",
+            scales="identical", max_abs_err=f"{err:.6g}",
+            slots=q.shape[0], context=step + 1,
+            fresh_pages=int((fresh < ks.shape[0]).sum().item()),
+            k_absmax=f"{k.abs().max().item():.6g}",
+            v_absmax=f"{v.abs().max().item():.6g}")
+
+
+def train_step_flops(cfg, batch) -> float:
+    """Float operations of one training step of the quality tool: the
+    forward's matmuls over batch x (n_seq - 1) tokens (q, k, v, o and the
+    FFN per layer; q.K and p.V over every one of the S x S scores, as
+    dense_causal_logits computes them; the tied logits), times 3 for the
+    forward and the backward."""
+    S, D = cfg.n_seq - 1, cfg.emb_dim
+    per_token = (cfg.n_layers * (2 * 4 * D * D + 2 * 2 * D * cfg.ffn_dim
+                                 + 2 * 2 * S * D)
+                 + 2 * D * cfg.n_vocab)
+    return 3.0 * batch * S * per_token
+
+
+def quality_phase(gpu_line) -> None:
+    """Phase 16, [quality]: the quantization-quality evidence at full size
+    (``python -m min_llm_inference_tpu_torch.tools.quality_evidence``):
+    the 8L/512D model trained QUALITY_STEPS steps of 64 sequences on the
+    card, its perplexity at float32, int8 and int4 KV and at int8 weights
+    with int8 KV on 840 x 127 predicted tokens, and the 12L/768D GPT-2
+    import smoke; its artifact goes to chiprun_out/quality_torch.json
+    beside this script. One [quality] line; then the fused-write kernel on
+    the trained model's K/V rows at int8 and int4 (check_trained_kv_rows).
+    A missed bound of the tool (ppl_ref < 15, |int8 ΔPPL| <= 0.1, a finite
+    GPT-2 smoke) raises."""
+    import gc
+
+    from min_llm_inference_tpu_torch.tools import quality_evidence as qe
+
+    t0 = time.perf_counter()
+    results, (cfg, params, eval_tokens) = qe.collect(QUALITY_STEPS, "cuda")
+    took = time.perf_counter() - t0
+    out = os.path.join(HERE, "chiprun_out", "quality_torch.json")
+    qe.write_artifact(results, out)
+    tr, smoke = results["trained_8l512d"], results["gpt2_import_smoke"]
+    step_ms = tr["train_seconds"] / tr["train_steps"] * 1e3
+    # a step reads the params and AdamW's two moments and writes all three
+    n_params = sum(t.numel() for t in (
+        params["wte"], params["wpe"],
+        *(w for layer in params["layers"] for w in layer.values())))
+    bound_ms, bound_by = bound_of(6 * 4 * n_params,
+                                  train_step_flops(cfg, tr["train_batch"]))
+    log("quality", gpu=f"'{gpu_line}'", steps=tr["train_steps"],
+        batch=tr["train_batch"], loss_first=tr["loss_first"],
+        loss_last=tr["loss_last"], train_s=tr["train_seconds"],
+        step_ms=step_ms, step_bound_ms=bound_ms, step_bound_by=bound_by,
+        precision=f"'{tr['train_precision']}'",
+        eval_tokens=tr["eval_predicted_tokens"], eval_s=tr["eval_seconds"],
+        ppl_ref=tr["ppl_ref"], int8_kv_dppl=tr["int8_kv"]["delta_ppl"],
+        int4_kv_dppl=tr["int4_kv"]["delta_ppl"],
+        int8_w_int8_kv_dppl=tr["int8_weights_plus_int8_kv"]["delta_ppl"],
+        floor_ppl=tr["corpus_entropy_floor_ppl"],
+        gpt2_ppl_ref=smoke["ppl_ref"], gpt2_dppl=smoke["delta_ppl"],
+        gpt2_s=smoke["seconds"], phase_s=f"{took:.1f}",
+        passed=results["pass"], artifact=os.path.relpath(out, HERE))
+    for kv in ("int8", "int4"):
+        check_trained_kv_rows(params, cfg, eval_tokens, kv)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not results["pass"]:
+        raise AssertionError(f"quality: {results['pass_criteria']} missed")
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -3161,7 +3318,8 @@ def main() -> int:
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="also profile one run of each full-width path "
                          "into DIR, once every path has run")
-    ap.add_argument("--only", choices=["mesh-tp", "bf16-kv", "bench"],
+    ap.add_argument("--only",
+                    choices=["mesh-tp", "bf16-kv", "bench", "quality"],
                     default=None,
                     help="build the kernels and run this stage alone "
                          "(no kernels line, no last line)")
@@ -3196,6 +3354,10 @@ def main() -> int:
     if args.only == "bench":
         _build.build(_build.SOURCES + _build.HOST_SOURCES)
         bench_phase(gpu_line)
+        return 0
+    if args.only == "quality":
+        _build.build(_build.SOURCES + _build.HOST_SOURCES)
+        quality_phase(gpu_line)
         return 0
     if args.only == "bf16-kv":
         _build.build(_build.SOURCES + _build.HOST_SOURCES)
@@ -3368,6 +3530,7 @@ def main() -> int:
         bf16["ref"]["max_abs_err"])
     bf16_errs["paged_decode_attention"].append(bf16["host"]["max_abs_err"])
     bench_phase(gpu_line)
+    quality_phase(gpu_line)
     for run, wall, label in PROFILE_PENDING:
         profile_path(run, args.profile, wall, label)
     PROFILE_PENDING.clear()

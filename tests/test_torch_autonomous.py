@@ -112,7 +112,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         import chip_smoke
         new = set(sys.modules) - before
         bad = sorted(m for m in new if m.split(".")[0] in
-                     ("jax", "jaxlib", "min_llm_inference_tpu"))
+                     ("jax", "jaxlib", "min_llm_inference_tpu", "optax",
+                      "transformers"))
         assert not bad, bad
         print("ok", len(new))
     """)

@@ -18,12 +18,15 @@ import sys
 from contextlib import redirect_stdout
 
 import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
 from min_llm_inference_tpu import EngineConfig as JEngineConfig
 from min_llm_inference_tpu import ModelConfig as JModelConfig
 from min_llm_inference_tpu import init_params
+from min_llm_inference_tpu.parallel import engine as jengine
 from min_llm_inference_tpu_torch.examples import demo_engine as tdemo
 from min_llm_inference_tpu_torch.examples import scaling_bench as tscale
 
@@ -75,6 +78,27 @@ def test_demo_prints_jax_demo_lines(monkeypatch, capsys, flags):
         assert sum("finished 32/32" in ln for ln in got) == 5
 
 
+class CopyingJnp:
+    """jax.numpy whose ``asarray`` copies a numpy operand first, for the
+    JAX harness's ShardedPagedEngine. It uploads its packed scheduler
+    operand with ``jnp.asarray(self._packed)`` and then overwrites the
+    array's length column (min_llm_inference_tpu/parallel/engine.py:
+    194-199). On the CPU backend ``asarray`` may alias the numpy buffer, so
+    the sharded step on the virtual devices can read the overwritten
+    column: then no slot goes live and ``run()`` never returns, which the
+    2-device paged mesh did in most runs. An upload to a TPU copies, as
+    this does; the engine's arithmetic is untouched."""
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    @staticmethod
+    def asarray(x, *args, **kwargs):
+        if isinstance(x, np.ndarray):
+            x = x.copy()
+        return jnp.asarray(x, *args, **kwargs)
+
+
 @pytest.mark.parametrize("engine", ["auto", "paged"])
 def test_scaling_harness_matches_jax_run(monkeypatch, capsys, engine):
     """Two mesh sizes, one line each; each size's token total equals the
@@ -97,6 +121,7 @@ def test_scaling_harness_matches_jax_run(monkeypatch, capsys, engine):
         "devices= 2 (dp=1 x tp=2)", "devices= 4 (dp=2 x tp=2)"]
     assert "efficiency 100.0%" in lines[0]
 
+    monkeypatch.setattr(jengine, "jnp", CopyingJnp())
     model = JModelConfig(**dataclasses.asdict(tscale.MODEL))
     params = init_params(jax.random.PRNGKey(0), model, eof_bias=0.02)
     for n in (2, 4):
