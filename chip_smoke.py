@@ -2464,8 +2464,11 @@ def profile_path(run, out_dir, wall_unprofiled, label):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, _, wall = run()
-    phases = {"burst_dispatch", "status_fetch", "drain_fetch", "forward",
-              "process_results", "schedule", "prefill"}
+    from min_llm_inference_tpu_torch.utils.profiling import \
+        get_global_phase_stats
+
+    # every engine phase the run entered (utils/profiling.phase)
+    phases = set(get_global_phase_stats().seconds)
     rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.key in phases:

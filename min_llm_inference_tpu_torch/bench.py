@@ -17,8 +17,11 @@ command line runs on both packages.
 One engine serves the warm run and every timed run. The port's CUDA graphs
 belong to the engine (one captured program per queue shape), so a new
 engine per run would capture again inside the timed window; the timed
-runs replay what the warm run captured. ``--phase-stats`` writes the
-phase times and the timed runs' capture count to stderr.
+runs replay what the warm run captured. ``--phase-stats`` turns the
+program's tracing on (utils/profiling: the graphs the warm run captures
+time their phases on the device) and writes the phase times, host seconds
+and beside them the device seconds of the phases inside a burst graph, and
+the timed runs' capture count to stderr.
 
 Runs on ``cuda`` unless ``--device`` names another; without a GPU it
 raises.
@@ -41,7 +44,12 @@ from .models.params import init_params, params_from_numpy
 from .runtime.autonomous import AutonomousEngine
 from .runtime.engine import PagedEngine
 from .runtime.item_storage import ItemStorage, Request
-from .utils.profiling import get_global_phase_stats, trace
+from .utils.profiling import (
+    get_global_phase_stats,
+    set_tracing,
+    trace,
+    tracing,
+)
 
 # The reference C++/CUDA engine's published throughput (its README, best
 # lineage), measured on an unspecified NVIDIA GPU; kept so that
@@ -227,8 +235,9 @@ def parser() -> argparse.ArgumentParser:
                     help="trace ONE timed run with torch.profiler into "
                          "LOGDIR (trace.json)")
     ap.add_argument("--phase-stats", action="store_true",
-                    help="print per-engine-phase host wall times and the "
-                         "timed runs' graph captures to stderr")
+                    help="trace the engine's phases (host wall times; "
+                         "device times inside burst graphs) and print them "
+                         "and the timed runs' graph captures to stderr")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     return ap
@@ -313,7 +322,16 @@ def _captures(engine) -> int:
 def run(args) -> tuple:
     """One bench run of parsed ``args``: (bench.py's result dict, extra)
     where extra holds every timed run in run order (``runs``), the warm
-    and timed runs' graph captures and the phase stats summary."""
+    and timed runs' graph captures and the phase stats summary. With
+    ``--phase-stats`` the program's tracing is on for the run."""
+    prev = set_tracing(args.phase_stats or tracing())
+    try:
+        return _run(args)
+    finally:
+        set_tracing(prev)
+
+
+def _run(args) -> tuple:
     device = resolve_device(args.device)
     model_cfg, engine_cfg, opts = resolve(args)
     rng = np.random.default_rng(0)

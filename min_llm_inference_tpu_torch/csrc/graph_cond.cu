@@ -16,6 +16,12 @@
 // which work issued on `parent` follows the IF node. Nesting is allowed (a
 // body may hold IF nodes of its own, each on a stream of its own).
 //
+// mli_phase_stamp, called while a stream is captured, records a device
+// span's stamp: a one-thread kernel that reads the global timer. The start
+// stamp keeps the time in its phase's row; the end stamp adds the elapsed
+// nanoseconds and one call to the row (utils/profiling.phase, with tracing
+// on).
+//
 // Plain C interface, loaded with ctypes (ops/_build.py builds it).
 // runtime/graph.py drives it.
 
@@ -42,6 +48,18 @@ namespace {
 __global__ void set_handle_kernel(cudaGraphConditionalHandle handle,
                                   const bool* pred) {
   cudaGraphSetConditional(handle, *pred ? 1u : 0u);
+}
+
+// row: [start ns, summed ns, calls] of one phase
+__global__ void phase_stamp_kernel(long long* row, int end) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  if (end) {
+    row[1] += static_cast<long long>(now) - row[0];
+    row[2] += 1;
+  } else {
+    row[0] = static_cast<long long>(now);
+  }
 }
 
 }  // namespace
@@ -86,6 +104,12 @@ int mli_if_begin(cudaStream_t parent, const bool* pred, cudaStream_t child) {
 int mli_if_end(cudaStream_t child) {
   cudaGraph_t body;
   return cudaStreamEndCapture(child, &body);
+}
+
+// 0, or the CUDA error code of the launch.
+int mli_phase_stamp(cudaStream_t stream, long long* row, int end) {
+  phase_stamp_kernel<<<1, 1, 0, stream>>>(row, end);
+  return cudaGetLastError();
 }
 
 // A stream of its own for a capture or an IF body (nullptr on failure):

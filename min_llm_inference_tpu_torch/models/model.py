@@ -26,6 +26,7 @@ from ..ops.reference import (
     tied_logits,
     token_pos_embed,
 )
+from ..utils.profiling import phase
 
 
 class SingleChipCtx:
@@ -138,10 +139,12 @@ def decode_round_tokens(
         write_kv(li, pos, k, v, live)
         attn_out = attend(li, q, lengths)
         h = layer_post(layer, cfg, h, attn_out, ctx)
-    logits = ctx.logits(h, params["wte"])
-    if next_token_fn is not None:
-        return next_token_fn(logits, lengths)
-    return greedy_next_token(logits, lengths, cfg.n_seq, cfg.eof_token_id)
+    with phase("logits"):
+        logits = ctx.logits(h, params["wte"])
+        if next_token_fn is not None:
+            return next_token_fn(logits, lengths)
+        return greedy_next_token(logits, lengths, cfg.n_seq,
+                                 cfg.eof_token_id)
 
 
 def causal_masked_attention(q, k, v, lengths, n_heads: int):

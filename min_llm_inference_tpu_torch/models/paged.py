@@ -61,6 +61,7 @@ from ..ops.quant import (
     update_page_scales,
 )
 from ..ops.reference import inv_sqrt, masked_attention
+from ..utils.profiling import phase
 from .model import DEFAULT_CTX, decode_round_tokens, prefill_write_kv
 
 _TINY = torch.finfo(torch.float32).tiny
@@ -628,19 +629,22 @@ def make_ring_round_callbacks(
             0, NP - 1).long()
 
     def write_kv(li, pos_, k, v, live_):
-        if quantized:
-            update_page_scales(k_scales[li], k, fresh_pid, qmax, scale_reduce)
-            update_page_scales(v_scales[li], v, fresh_pid, qmax, scale_reduce)
-            sk, sv = k_scales[li][pidr], v_scales[li][pidr]
-            qk = quantize_against(k, inv_scale(sk)[:, None], qmax)
-            qv = quantize_against(v, inv_scale(sv)[:, None], qmax)
-            ring_scs[li][:, round_idx] = sk
-            ring_scs[li][:, 64 + round_idx] = sv
-        else:
-            qk, qv = k, v
-        Dk = qk.shape[-1]
-        rings[li][:, round_idx, :Dk] = qk
-        rings[li][:, round_idx, Dk:] = qv
+        with phase("ring"):
+            if quantized:
+                update_page_scales(k_scales[li], k, fresh_pid, qmax,
+                                   scale_reduce)
+                update_page_scales(v_scales[li], v, fresh_pid, qmax,
+                                   scale_reduce)
+                sk, sv = k_scales[li][pidr], v_scales[li][pidr]
+                qk = quantize_against(k, inv_scale(sk)[:, None], qmax)
+                qv = quantize_against(v, inv_scale(sv)[:, None], qmax)
+                ring_scs[li][:, round_idx] = sk
+                ring_scs[li][:, 64 + round_idx] = sv
+            else:
+                qk, qv = k, v
+            Dk = qk.shape[-1]
+            rings[li][:, round_idx, :Dk] = qk
+            rings[li][:, round_idx, Dk:] = qv
 
     def attend(li, q, lens):
         ks = k_scales[li] if quantized else None
@@ -663,10 +667,12 @@ def make_ring_round_callbacks(
                 ring_start=ring_start, n_heads=heads,
                 packed_int4=engine_cfg.kv_packed)
         # the ring rides unpacked even for int4 pools: packed=False
-        return merge_ring_partial(
-            o_p, m_p, l_p, q, rings[li], ring_scs[li] if quantized else None,
-            ring_start, lens, heads, False, ring_r0=ring_r0,
-        ).to(q.dtype)
+        with phase("ring"):
+            return merge_ring_partial(
+                o_p, m_p, l_p, q, rings[li],
+                ring_scs[li] if quantized else None, ring_start, lens, heads,
+                False, ring_r0=ring_r0,
+            ).to(q.dtype)
 
     return write_kv, attend
 

@@ -169,13 +169,18 @@ class ShardedAutonomousEngine:
         mine = deal(requests, mesh)
         n_loc = [_share(n, dp, g) for g in range(dp)]
         cap_loc = max(self.request_capacity_loc or 0, max(n_loc))
-        # one prompt bucket for every group: the same shapes on every rank
-        s_pre = prompt_bucket(requests, S)
-        prog = eng._load(*eng._queue(mine, cap_loc, s_pre), len(mine))
+        with phase("queue"):
+            # one prompt bucket for every group: the same shapes on every
+            # rank
+            s_pre = prompt_bucket(requests, S)
+            queue = eng._queue(mine, cap_loc, s_pre)
+        with phase("upload"):
+            prog = eng._load(*queue, len(mine))
 
         counter.start_record()
         done = False
         prev_status = None
+        admitted = [0] * dp
         while not done:
             with phase("burst_dispatch"):
                 for _ in range(self.chunk):
@@ -187,6 +192,12 @@ class ShardedAutonomousEngine:
             live_total = int(stat[:, 0].sum())
             heads, frees, retries = (tuple(int(x) for x in stat[:, c])
                                      for c in (1, 2, 3))
+            # a group's admitted requests have their first token on the
+            # device (its request j is request g + j * dp)
+            for g in range(dp):
+                for j in range(admitted[g], heads[g]):
+                    counter.note_first_token(requests[g + j * dp].id)
+                admitted[g] = heads[g]
             queued = any(heads[g] < n_loc[g] or retries[g] > 0
                          for g in range(dp))
             done = live_total == 0 and not queued
@@ -201,27 +212,29 @@ class ShardedAutonomousEngine:
                 prev_status = None
         with phase("drain_fetch"):
             out_tokens, final_lens = self._drain(prog, cap_loc)
+            eng.stats.host_syncs += prog.fold_phases()
         total = 0
-        for g in range(dp):
-            for j, i in enumerate(range(g, n, dp)):
-                req = requests[i]
-                fl = int(final_lens[g][j])
-                if fl <= 0:
-                    raise RuntimeError(f"request {i} (group {g}) unfinished")
-                gen = out_tokens[g][j, len(req.tokens): fl].tolist()
-                req.tokens.extend(gen)
-                total += len(gen)
-                counter.note_first_token(req.id)
-                item_storage.add_finished(req)
+        with phase("collect"):
+            for g in range(dp):
+                for j, i in enumerate(range(g, n, dp)):
+                    req = requests[i]
+                    fl = int(final_lens[g][j])
+                    if fl <= 0:
+                        raise RuntimeError(
+                            f"request {i} (group {g}) unfinished")
+                    gen = out_tokens[g][j, len(req.tokens): fl].tolist()
+                    req.tokens.extend(gen)
+                    total += len(gen)
+                    item_storage.add_finished(req)
         counter.add_record_if_recording(total)
         counter.stop_record()
 
     def _drain(self, prog, cap_loc: int):
         """One pull of this rank's outputs and device counters (int16 where
-        tokens fit, the int32 counters as int16 pairs), all-gathered over
-        the mesh as bytes. Folds this rank's counters into ``stats`` and
-        returns each group's (out_tokens [cap_loc, S], final_lens
-        [cap_loc]) as int32 numpy."""
+        tokens fit; the int64 counters in pieces of that width),
+        all-gathered over the mesh as bytes. Folds this rank's counters
+        into ``stats`` and returns each group's (out_tokens [cap_loc, S],
+        final_lens [cap_loc]) as int32 numpy."""
         st = prog.st[self.local_cfg.n_slots]
         dt = _drain_dtype(self.model_cfg)
         rows = torch.cat([st.out_tokens, st.final_lens[:, None]], dim=1)
@@ -231,7 +244,7 @@ class ShardedAutonomousEngine:
         n_rows = rows.numel()
         np_dt = np.int16 if dt == torch.int16 else np.int32
         _fold_counts(self.engine.stats,
-                     blob.numpy()[n_rows:].copy().view(np.int32))
+                     blob.numpy()[n_rows:].copy().view(np.int64))
         parts = gather_rows(self.mesh, blob.view(torch.uint8))
         outs, lens = [], []
         for part in parts:

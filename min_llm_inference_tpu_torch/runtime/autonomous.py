@@ -81,6 +81,7 @@ from ..ops.indexing import index_set_drop_
 from ..ops.random import prng_key
 from ..ops.ring_flush import ring_flush
 from ..ops.sampling import sample_next_token
+from ..utils import profiling
 from ..utils.profiling import phase
 from .graph import (
     capture,
@@ -123,17 +124,19 @@ class AutoState(NamedTuple):
 class BurstStats:
     """What the engine did: bursts dispatched, bursts the liveness gate
     skipped, decode rounds executed, prefill blocks run (one per sub-burst
-    that admitted; these three counted on the device and read with the
-    final outputs), host syncs (the host waiting on the device: the run's
-    two input uploads, status and output reads), under overcommit
-    preemptions (read with the final outputs), and on CUDA the graphs
-    captured (one per executed width at a queue shape's first run; a
-    capture makes no host sync)."""
+    that admitted), slot-rounds executed (each executed burst's width x
+    its rounds; these four counted on the device and read with the final
+    outputs), host syncs (the host waiting on the device: the run's two
+    input uploads, status and output reads, and with tracing on the read
+    of the device phase table), under overcommit preemptions (read with
+    the final outputs), and on CUDA the graphs captured (one per executed
+    width at a queue shape's first run; a capture makes no host sync)."""
 
     bursts: int = 0
     skipped: int = 0
     rounds: int = 0
     prefills: int = 0
+    slot_rounds: int = 0
     host_syncs: int = 0
     preemptions: int = 0
     captures: int = 0
@@ -463,12 +466,13 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     R_total, S_pre = prompts_all.shape
 
     # ---- 1-2. free, (overcommit: grow, preempt,) admit ----
-    if engine_cfg.overcommit:
-        adm = _overcommit_admission(engine_cfg, max_new, R, st, prompts_all,
-                                    plens_all, n_real)
-    else:
-        adm = _full_grant_admission(engine_cfg, max_new, st, prompts_all,
-                                    plens_all, n_real)
+    with phase("admit"):
+        if engine_cfg.overcommit:
+            adm = _overcommit_admission(engine_cfg, max_new, R, st,
+                                        prompts_all, plens_all, n_real)
+        else:
+            adm = _full_grant_admission(engine_cfg, max_new, st, prompts_all,
+                                        plens_all, n_real)
     (page_table, lengths, last_tokens, rid, allocated, queue_head, free_top,
      page_stack, granted, plens, prompts, m, slot_ids, oc) = adm
 
@@ -489,9 +493,10 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
                              write_kv_block, ctx)
         return run
 
-    syncs = device_switch(_prefill_bucket(m, sizes),
-                          [None] + [prefill(s) for s in sizes])
-    counts[_PREFILLS].add_((m > 0).to(I32))
+    with phase("prefill"):
+        syncs = device_switch(_prefill_bucket(m, sizes),
+                              [None] + [prefill(s) for s in sizes])
+    counts[_PREFILLS].add_((m > 0).long())
 
     # ---- 4. decode rounds; the tokens scatter into the output buffers once
     # per sub-burst ----
@@ -555,11 +560,12 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
         last_tokens = torch.where(live, tok, last_tokens)
         lengths = new_lengths
     if use_ring and do_flush:
-        for pool, rg in zip(kv_pages, rings):
-            if engine_cfg.kv_packed:
-                rg = pack_ring_for_flush(rg, heads)
-            ring_flush(pool, rg, ring_start, lengths, page_table,
-                       n_rounds=flush_rounds, ring_r0=ring_r0)
+        with phase("ring"):
+            for pool, rg in zip(kv_pages, rings):
+                if engine_cfg.kv_packed:
+                    rg = pack_ring_for_flush(rg, heads)
+                ring_flush(pool, rg, ring_start, lengths, page_table,
+                           n_rounds=flush_rounds, ring_r0=ring_r0)
     index_set_drop_(st.out_tokens.view(-1), torch.cat(out_idx),
                     torch.cat(toks))
     index_set_drop_(st.final_lens, torch.cat(fin_rid), torch.cat(fin_len))
@@ -602,15 +608,18 @@ def _reset_state_(st: AutoState, n_units: int, key0) -> None:
 def _autonomous_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
                       attention_impl: str, max_new: int, ctx, sampling,
                       params, st: AutoState, prompts_all, plens_all, n_real,
-                      counts, status) -> int:
+                      counts, status, round_counts) -> int:
     """One burst, in place on ``st``'s buffers: ``subbursts`` repetitions
     of admit -> prefill -> decode (n_forward_rounds / subbursts rounds
     each), so dead slots refill every R/subbursts rounds while the host
     pays one status read per chunk. One liveness gate covers the whole
     burst (JAX: ``lax.cond``): with no live slot and nothing queued the
     burst changes no state tensor. ``n_real`` is the device count of real
-    requests; ``counts`` gets the skipped burst, the rounds and the prefill
-    blocks; ``status`` the 5-int status after the burst. Returns the host
+    requests; ``counts`` gets the skipped burst, the rounds and
+    slot-rounds (``round_counts``: [rounds, width x rounds] int64, one add)
+    and the prefill blocks; ``status`` the 5-int status after the burst.
+    Its phases (utils/profiling) are ``burst`` (inside the gate),
+    ``admit``, ``prefill``, ``ring`` and ``logits``. Returns the host
     syncs made (reads of the gate and the bucket on CUDA without capture;
     none on the CPU or in a graph).
 
@@ -621,32 +630,35 @@ def _autonomous_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     if engine_cfg.overcommit:
         pending = pending | (st.retry_top > 0)
     go = (st.lengths > 0).any() | pending
-    counts[_SKIPPED].add_((~go).to(I32))
+    counts[_SKIPPED].add_((~go).long())
     inner = []
 
     def run_subbursts():
-        n_sub = engine_cfg.subbursts
-        r_sub = engine_cfg.n_forward_rounds // n_sub
-        use_ring = engine_cfg.decode_ring and attention_impl == "grouped"
-        burst_ring = use_ring and engine_cfg.burst_flush and n_sub > 1
-        ring_ctx = None
-        if burst_ring:
-            rings, ring_scs = _new_rings(engine_cfg, st.kv,
-                                         engine_cfg.n_forward_rounds)
-            # slots live at burst start: first new position = length - 1,
-            # first ring column 0; admissions overwrite their entries
-            ring_ctx = (rings, ring_scs, torch.clamp_min(st.lengths - 1, 0),
-                        torch.zeros_like(st.lengths))
-        cur = st
-        for k in range(n_sub):
-            cur, ring_ctx, syncs = _sub_burst(
-                model_cfg, engine_cfg, attention_impl, max_new, ctx,
-                sampling, r_sub,
-                k * r_sub, ring_ctx, (not burst_ring) or k == n_sub - 1,
-                params, cur, prompts_all, plens_all, n_real, counts)
-            inner.append(syncs)
-        counts[_ROUNDS].add_(engine_cfg.n_forward_rounds)
-        _store_(st, cur)
+        with phase("burst"):
+            n_sub = engine_cfg.subbursts
+            r_sub = engine_cfg.n_forward_rounds // n_sub
+            use_ring = engine_cfg.decode_ring and attention_impl == "grouped"
+            burst_ring = use_ring and engine_cfg.burst_flush and n_sub > 1
+            ring_ctx = None
+            if burst_ring:
+                rings, ring_scs = _new_rings(engine_cfg, st.kv,
+                                             engine_cfg.n_forward_rounds)
+                # slots live at burst start: first new position = length
+                # - 1, first ring column 0; admissions overwrite their
+                # entries
+                ring_ctx = (rings, ring_scs,
+                            torch.clamp_min(st.lengths - 1, 0),
+                            torch.zeros_like(st.lengths))
+            cur = st
+            for k in range(n_sub):
+                cur, ring_ctx, syncs = _sub_burst(
+                    model_cfg, engine_cfg, attention_impl, max_new, ctx,
+                    sampling, r_sub,
+                    k * r_sub, ring_ctx, (not burst_ring) or k == n_sub - 1,
+                    params, cur, prompts_all, plens_all, n_real, counts)
+                inner.append(syncs)
+            counts[_ROUNDS:_SLOT_ROUNDS + 1].add_(round_counts)
+            _store_(st, cur)
 
     syncs = device_if(go, run_subbursts)
     status.copy_(_status_of(st))
@@ -674,16 +686,19 @@ def _compact_slice(st: AutoState, b_new: int) -> AutoState:
 _SLOT_FIELDS = ("page_table", "lengths", "last_tokens", "rid", "allocated",
                 "grown", "adm_seq")
 # device counters of a program, before the kernel launch counts
-_SKIPPED, _ROUNDS, _PREFILLS = 0, 1, 2
-_N_STATS = 3
+_SKIPPED, _ROUNDS, _SLOT_ROUNDS, _PREFILLS = range(4)
+_N_STATS = 4
 
 
 class _Program:
     """The burst over fixed buffers: the state at each executed width (the
     per-slot fields are the width's own, the rest shared), the request
     queue (prompts, prompt lengths, the device count ``n_real``), the
-    device counters the burst writes (skipped, rounds, prefills, then the
-    kernel launches recorded into a graph) and the status.
+    device counters the burst writes (int64: skipped, rounds, slot-rounds,
+    prefills, then the kernel launches recorded into a graph), the status
+    and the device phase table (utils/profiling: the device spans of
+    graphs captured with tracing on; ``stamped`` says whether they hold
+    any).
 
     ``burst(b)`` runs one burst at width b: eagerly (the CPU; CUDA with
     capture off), or on CUDA, once ``capture()`` has run, as the replay of
@@ -709,9 +724,12 @@ class _Program:
         self.prompts = torch.zeros((cap, s_pre), dtype=I32, device=dev)
         self.plens = torch.zeros(cap, dtype=I32, device=dev)
         self.n_real = torch.zeros((), dtype=I32, device=dev)
-        self.counts = torch.zeros(_N_STATS + _build.MAX_COUNTED, dtype=I32,
-                                  device=dev)
+        self.counts = torch.zeros(_N_STATS + _build.MAX_COUNTED,
+                                  dtype=torch.int64, device=dev)
         self.status = torch.zeros(5, dtype=I32, device=dev)
+        self.phase_table = profiling.new_device_table(dev)
+        self.stamped = False
+        R = ecfg.n_forward_rounds
         # the burst at each width, over these buffers
         self._bodies = {b: functools.partial(
             _autonomous_burst, engine.model_cfg,
@@ -719,7 +737,8 @@ class _Program:
                 ecfg, n_slots=b),
             engine.attention_impl, min(engine.max_new, b), engine.ctx,
             engine.sampling, engine.params, st, self.prompts, self.plens,
-            self.n_real, self.counts, self.status)
+            self.n_real, self.counts, self.status,
+            torch.tensor([R, b * R], dtype=torch.int64, device=dev))
             for b, st in self.st.items()}
         self.graphs = {}
 
@@ -735,7 +754,8 @@ class _Program:
         burst per width that runs every branch (graph.warming) on the
         capture stream; then reset the state. The graphs share their memory
         pools (they never replay concurrently). With ``dot_dir``, each
-        graph is also written there as ``burst-<width>.dot``."""
+        graph is also written there as ``burst-<width>.dot``. With the
+        program's tracing on, the graphs time their phases on the device."""
         dev = self.device
         stream = capture_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
@@ -746,10 +766,11 @@ class _Program:
         self.reset()
         pools = new_pools()
         info = {}
+        self.stamped = profiling.tracing()
         for b in self.st:
             dot = os.path.join(dot_dir, f"burst-{b}.dot") if dot_dir else None
             g = capture(self._bodies[b], dev, pools, self.counts[_N_STATS:],
-                        dot)
+                        dot, self.phase_table)
             self.graphs[b] = g
             info[b] = dict(capture_s=g.capture_s,
                            instantiate_s=g.instantiate_s,
@@ -762,6 +783,7 @@ class _Program:
         buffers are written by the compaction before that width runs)."""
         _reset_state_(self.st[self.full], self.n_units, self.key0)
         self.counts.zero_()
+        self.phase_table.zero_()
 
     def compact(self, b_from: int, b_to: int) -> None:
         """Drain downshift: the live slots of width b_from into width
@@ -773,11 +795,21 @@ class _Program:
                 getattr(dst, f).copy_(getattr(src, f))
 
     def count_vector(self) -> torch.Tensor:
-        """The device counters and, last, the preemptions so far."""
+        """The device counters and, last, the preemptions so far (int64)."""
         st = self.st[self.full]
         pre = (torch.zeros_like(self.n_real) if st.preempted is None
                else st.preempted)
-        return torch.cat([self.counts, pre.view(1)])
+        return torch.cat([self.counts, pre.view(1).long()])
+
+    def fold_phases(self) -> int:
+        """Where the graphs time their phases: the device phase table
+        into the global PhaseStats, and zeroed. Returns the host syncs made
+        (one read, or none)."""
+        if not self.stamped:
+            return 0
+        profiling.fold_device(self.phase_table.cpu().numpy())
+        self.phase_table.zero_()
+        return 1
 
 
 def check_prompts(requests: List[Request], n_seq: int) -> None:
@@ -795,12 +827,18 @@ def prompt_bucket(requests: List[Request], n_seq: int) -> int:
     return min(n_seq, 1 << (max_plen - 1).bit_length())
 
 
+def _int64(halves: np.ndarray) -> np.ndarray:
+    """int64 values pulled to the host as int32 pairs."""
+    return np.ascontiguousarray(halves, dtype=np.int32).view(np.int64)
+
+
 def _fold_counts(stats: "BurstStats", counts: np.ndarray) -> None:
     """Add a pulled count_vector() to ``stats`` (preemptions too) and the
     launches recorded into graphs to the kernel wrappers."""
     stats.skipped += int(counts[_SKIPPED])
     stats.rounds += int(counts[_ROUNDS])
     stats.prefills += int(counts[_PREFILLS])
+    stats.slot_rounds += int(counts[_SLOT_ROUNDS])
     stats.preemptions += int(counts[-1])
     _build.add_device_counts(counts[_N_STATS:-1])
 
@@ -932,16 +970,19 @@ class AutonomousEngine:
         if n == 0:
             return
         cap = max(self.request_capacity or 0, n)
-        # prompt bucket: the next power of two, so a short-prompt queue does
-        # not prefill the full n_seq width
-        s_pre = prompt_bucket(requests, S)
-        prompts_all, plens_all = self._queue(requests, cap, s_pre)
-        prog = self._load(prompts_all, plens_all, n)
+        with phase("queue"):
+            # prompt bucket: the next power of two, so a short-prompt queue
+            # does not prefill the full n_seq width
+            s_pre = prompt_bucket(requests, S)
+            prompts_all, plens_all = self._queue(requests, cap, s_pre)
+        with phase("upload"):
+            prog = self._load(prompts_all, plens_all, n)
 
         counter.start_record()
         done = False
         prev_status = None
         b_exec = self.engine_cfg.n_slots
+        admitted = 0
         while not done:
             with phase("burst_dispatch"):
                 for _ in range(self.chunk):
@@ -950,6 +991,11 @@ class AutonomousEngine:
             with phase("status_fetch"):
                 live, head, free, retry, _fin = prog.status.tolist()
                 self.stats.host_syncs += 1
+            # admitted requests have their first token on the device: the
+            # admitting sub-burst's first round emitted it
+            for req in requests[admitted:head]:
+                counter.note_first_token(req.id)
+            admitted = head
             pending = head < n or retry > 0
             done = live == 0 and not pending
             if not done and not pending:
@@ -972,27 +1018,30 @@ class AutonomousEngine:
         with phase("drain_fetch"):
             # one pull: the outputs, then rows of the device counters
             st = prog.st[self.engine_cfg.n_slots]
-            counts = prog.count_vector()
-            n_counts, width = counts.numel(), S + 1
-            rows = -(-n_counts // width)
+            # the int64 counters ride as int32 pairs
+            counts = prog.count_vector().view(I32)
+            n_halves, width = counts.numel(), S + 1
+            rows = -(-n_halves // width)
             counts = torch.cat([counts,
-                                counts.new_zeros(rows * width - n_counts)])
+                                counts.new_zeros(rows * width - n_halves)])
             packed = torch.cat([
                 torch.cat([st.out_tokens, st.final_lens[:, None]], dim=1),
                 counts.view(rows, width)]).cpu().numpy()
             self.stats.host_syncs += 1
             out_tokens, final_lens = packed[:cap, :-1], packed[:cap, -1]
-            _fold_counts(self.stats, packed[cap:].reshape(-1)[:n_counts])
+            _fold_counts(self.stats,
+                         _int64(packed[cap:].reshape(-1)[:n_halves]))
+            self.stats.host_syncs += prog.fold_phases()
         total = 0
-        for i, req in enumerate(requests):
-            fl = int(final_lens[i])
-            if fl <= 0:
-                raise RuntimeError(f"request {i} unfinished")
-            gen = out_tokens[i, plens_all[i]: fl].tolist()
-            req.tokens.extend(gen)
-            total += len(gen)
-            counter.note_first_token(req.id)
-            item_storage.add_finished(req)
+        with phase("collect"):
+            for i, req in enumerate(requests):
+                fl = int(final_lens[i])
+                if fl <= 0:
+                    raise RuntimeError(f"request {i} unfinished")
+                gen = out_tokens[i, plens_all[i]: fl].tolist()
+                req.tokens.extend(gen)
+                total += len(gen)
+                item_storage.add_finished(req)
         counter.add_record_if_recording(total)
         counter.stop_record()
 
@@ -1020,6 +1069,14 @@ class StreamingSession:
     (captured when the session is made); ``dispatch`` replays it and starts
     the copy of the status and ``final_lens`` into pinned host memory,
     which ``observe`` waits for ``observe_lag`` bursts later.
+
+    Every status read brings the device queue head: a request whose global
+    id lies below it has been admitted, and its first token exists on the
+    device (the admitting sub-burst's first round emitted it), though
+    ``poll`` hands it over only with its last. The session notes a
+    request's submit and that read in the global ThroughputCounter
+    (``note_submit``, ``note_first_token``): its ``ttfts`` are the waits
+    for admission.
 
         sess = StreamingSession(engine, capacity=4096, max_prompt_len=64)
         sess.submit([Request(0, [1, 2, 3])])
@@ -1059,6 +1116,8 @@ class StreamingSession:
         # every request with global id < _frontier is collected; rows
         # [_frontier % cap, n_submitted % cap) are live and not reusable
         self._frontier = 0
+        # every request with global id < _admitted has been seen admitted
+        self._admitted = 0
 
     @property
     def free_capacity(self) -> int:
@@ -1088,6 +1147,10 @@ class StreamingSession:
         max_prompt_len."""
         if not requests:
             return
+        with phase("submit"):
+            self._submit(requests)
+
+    def _submit(self, requests: List[Request]) -> None:
         k = len(requests)
         if k > self.free_capacity:
             raise ValueError(
@@ -1105,6 +1168,9 @@ class StreamingSession:
                                  f"{self.max_prompt_len}]")
             rows[i, : len(req.tokens)] = req.tokens
             lens[i] = len(req.tokens)
+        counter = get_global_throughput_counter()
+        for req in requests:
+            counter.note_submit(req.id)
         self._staged = [s for s in self._staged if not s[0].query()]
         row0 = self.n_submitted % self.capacity
         first = min(k, self.capacity - row0)   # split a wrap-around
@@ -1120,6 +1186,14 @@ class StreamingSession:
         self.stats.host_syncs += self._prog.burst(self._width)
         self.stats.bursts += 1
 
+    def _seen(self, head: int) -> None:
+        """A read has just shown the requests below ``head`` admitted:
+        their first tokens exist on the device."""
+        counter = get_global_throughput_counter()
+        for g in range(self._admitted, head):
+            counter.note_first_token(self._requests[g].id)
+        self._admitted = max(self._admitted, head)
+
     def _status_dict(self, snap: np.ndarray, n_submitted_at: int) -> dict:
         live, head, free, retry, fin = (int(x) for x in snap[:5])
         return {"live": live, "queued": self.n_submitted - head + retry,
@@ -1133,11 +1207,14 @@ class StreamingSession:
         finished_total}. ``observe=True`` brings the final_lens snapshot in
         the same read (``fin_lens`` and ``n_submitted_at``, both for
         poll())."""
-        for _ in range(n_bursts or self.engine.chunk):
-            self._burst()
-        snap = (torch.cat([self._prog.status, self.st.final_lens]) if observe
-                else self._prog.status).cpu().numpy()
-        self.stats.host_syncs += 1
+        with phase("burst_dispatch"):
+            for _ in range(n_bursts or self.engine.chunk):
+                self._burst()
+        with phase("status_fetch"):
+            snap = (torch.cat([self._prog.status, self.st.final_lens])
+                    if observe else self._prog.status).cpu().numpy()
+            self.stats.host_syncs += 1
+        self._seen(int(snap[1]))
         out = self._status_dict(snap, self.n_submitted)
         if not observe:
             del out["fin_lens"], out["n_submitted_at"]
@@ -1150,15 +1227,17 @@ class StreamingSession:
         n_submitted rides along: a row recycled after this snapshot may
         still show its previous occupant's final length in it, so polls
         against it ignore later submissions."""
-        self._burst()
-        snap = torch.cat([self._prog.status, self.st.final_lens])
-        if self._cuda:
-            host = torch.empty(snap.shape, dtype=snap.dtype, pin_memory=True)
-            host.copy_(snap, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        else:
-            host, done = snap, None
+        with phase("burst_dispatch"):
+            self._burst()
+            snap = torch.cat([self._prog.status, self.st.final_lens])
+            if self._cuda:
+                host = torch.empty(snap.shape, dtype=snap.dtype,
+                                   pin_memory=True)
+                host.copy_(snap, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            else:
+                host, done = snap, None
         self._pending.append((host, done, self.n_submitted))
 
     def observe(self, block: bool = False) -> dict | None:
@@ -1170,10 +1249,13 @@ class StreamingSession:
                 len(self._pending) <= self.observe_lag and not block):
             return None
         host, done, n_sub = self._pending.popleft()
-        if done is not None:
-            done.synchronize()
-            self.stats.host_syncs += 1
-        return self._status_dict(host.numpy(), n_sub)
+        with phase("status_fetch"):
+            if done is not None:
+                done.synchronize()
+                self.stats.host_syncs += 1
+            snap = host.numpy()
+        self._seen(int(snap[1]))
+        return self._status_dict(snap, n_sub)
 
     def poll(self, fin_lens: np.ndarray | None = None,
              n_submitted_at: int | None = None) -> List[Request]:
@@ -1183,8 +1265,9 @@ class StreamingSession:
         and a finished row holds its tokens until it is recycled, so the
         latest out_tokens rows of snapshot-finished requests are exact)."""
         if fin_lens is None:
-            fl = self.st.final_lens.cpu().numpy()
-            self.stats.host_syncs += 1
+            with phase("poll_fetch"):
+                fl = self.st.final_lens.cpu().numpy()
+                self.stats.host_syncs += 1
             hi = self.n_submitted
         else:
             fl = fin_lens
@@ -1194,20 +1277,24 @@ class StreamingSession:
                if g not in self._collected and fl[g % self.capacity] > 0]
         if not new:
             return []
-        idx = torch.tensor([g % self.capacity for g in new],
-                           device=self.st.out_tokens.device)
-        rows = self.st.out_tokens.index_select(0, idx).cpu().numpy()
-        self.stats.host_syncs += 2
+        # a finished request was admitted, and so was every earlier one
+        self._seen(new[-1] + 1)
+        with phase("poll_fetch"):
+            idx = torch.tensor([g % self.capacity for g in new],
+                               device=self.st.out_tokens.device)
+            rows = self.st.out_tokens.index_select(0, idx).cpu().numpy()
+            self.stats.host_syncs += 2
         out = []
-        for j, g in enumerate(new):
-            req = self._requests[g]
-            row_fl = int(fl[g % self.capacity])
-            req.tokens.extend(rows[j, self._plens[g]: row_fl].tolist())
-            self._collected.add(g)
-            out.append(req)
-        while self._frontier in self._collected:
-            self._collected.discard(self._frontier)
-            self._frontier += 1
+        with phase("collect"):
+            for j, g in enumerate(new):
+                req = self._requests[g]
+                row_fl = int(fl[g % self.capacity])
+                req.tokens.extend(rows[j, self._plens[g]: row_fl].tolist())
+                self._collected.add(g)
+                out.append(req)
+            while self._frontier in self._collected:
+                self._collected.discard(self._frontier)
+                self._frontier += 1
         return out
 
     def close(self) -> List[Request]:
@@ -1247,3 +1334,4 @@ class StreamingSession:
         self.stats.host_syncs += 1
         self.stats.preemptions = 0
         _fold_counts(self.stats, counts)
+        self.stats.host_syncs += self._prog.fold_phases()

@@ -40,6 +40,7 @@ import weakref
 import torch
 
 from ..ops import _build
+from ..utils import profiling
 
 _SOURCE = "graph_cond.cu"
 
@@ -56,6 +57,8 @@ def _library() -> ctypes.CDLL:
     lib.mli_if_begin.restype = ctypes.c_int
     lib.mli_if_end.argtypes = [vp]
     lib.mli_if_end.restype = ctypes.c_int
+    lib.mli_phase_stamp.argtypes = [vp, vp, ctypes.c_int]
+    lib.mli_phase_stamp.restype = ctypes.c_int
     lib.mli_graph_dot.argtypes = [vp, ctypes.c_char_p]
     lib.mli_graph_dot.restype = ctypes.c_int
     lib.mli_stream_create.argtypes = []
@@ -130,6 +133,15 @@ def _captured_if(pred: torch.Tensor, fn) -> None:
         _build.check(lib, lib.mli_if_end(child.cuda_stream), "IF node end")
 
 
+def _stamp(row: torch.Tensor, end: bool) -> None:
+    """Record a device span's start or end stamp on ``row`` of a phase
+    table into the graph under capture (utils/profiling.phase)."""
+    lib = _library()
+    stream = torch.cuda.current_stream(row.device)
+    _build.check(lib, lib.mli_phase_stamp(stream.cuda_stream, row.data_ptr(),
+                                          int(end)), "phase stamp")
+
+
 class Captured:
     """A captured graph and what its capture cost: ``capture_s`` (recording
     the work), ``instantiate_s`` and
@@ -153,12 +165,16 @@ def new_pools() -> tuple:
 
 def capture(fn, dev: torch.device, pools: tuple | None = None,
             launch_counts: torch.Tensor | None = None,
-            debug_dot: str | None = None) -> Captured:
+            debug_dot: str | None = None,
+            phase_table: torch.Tensor | None = None) -> Captured:
     """Record ``fn()`` into a new CUDA graph on ``capture_stream(dev)``
     (which first waits for the current stream), allocating from ``pools``
     (``new_pools()``; None = pools of its own). With ``launch_counts``,
     kernel wrappers count their launches into it on the device
-    (ops/_build.count_launch). With ``debug_dot``, the graph is also
+    (ops/_build.count_launch). With ``phase_table`` and the program's
+    tracing on, ``utils.profiling.phase`` regions record device spans into
+    it (two stamp launches each); otherwise they add nothing to the graph.
+    With ``debug_dot``, the graph is also
     written there in Graphviz form (conditional bodies included). Makes
     no host sync. The cyclic garbage collector is off meanwhile: a graph it
     frees during a capture fails to reset and takes the process down."""
@@ -176,7 +192,9 @@ def capture(fn, dev: torch.device, pools: tuple | None = None,
     t0 = time.perf_counter()
     gc_was_on = gc.isenabled()
     gc.disable()
-    with torch.cuda.stream(stream), _build.counting_on_device(launch_counts):
+    with torch.cuda.stream(stream), \
+            _build.counting_on_device(launch_counts), \
+            profiling.capturing(phase_table, _stamp):
         graph.capture_begin(pool=pool)
         # the capture's own routing covers the captured stream only: the IF
         # bodies' streams allocate from a pool of their own, which stays
