@@ -6,6 +6,8 @@
     python3 chip_smoke.py --only bf16-kv     # the build and [bf16-kv] alone
     python3 chip_smoke.py --only bench       # the build and [bench] alone
     python3 chip_smoke.py --only quality     # the build and [quality] alone
+    python3 chip_smoke.py --only prefill-attn  # its kernel's build and
+                                             # [prefill-attn] alone
 
 Phases, one line each; any failure raises and exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -19,7 +21,14 @@ Phases, one line each; any failure raises and exits non-zero:
      and the int8 prefill scatter at the gpt2s path's shapes; the one-slot
      kernel and the prefill scatter at the host path's shapes (1024 slots,
      emb 2048, a fragmented table with stale dead rows; [128, 128, 2048]
-     prefill blocks), and the one-slot kernel on small multi-head f32
+     prefill blocks); the causal prefill attention ([prefill-attn]) at
+     the gpt2-small cells' prefill blocks (64 prompts of 512-896 tokens
+     padded to 1024, and of 16-128 padded to 128; 12 heads of 64), at its
+     tile edges and at every head dim it takes: float32 output within 2e-5
+     of each (row, head)'s scale, bfloat16 within one ulp, zeros past the
+     length, timed beside its bound, its plain version and
+     scaled_dot_product_attention (a yardstick the port never calls);
+     and the one-slot kernel on small multi-head f32
      pools; the flat ring partial at the gpt2s shapes (int8, 12 heads) and
      at the reference ring's (packed int4, emb 2048), and on small f32,
      int8 and int4 pools with 1, 2 and 12 heads, overcommit's half-group
@@ -203,7 +212,7 @@ by CUDA events behind a device sleep, device_ev_ms, and from
 torch.profiler, device_ms; taken after every path so that the profiler's
 cost stays out of the walls; the host path's replayed one-slot call also
 gets a device_ev_ms right after its path), a JSON line of per-kernel
-numbers (eight kernels, and the four attention kernels again at bf16
+numbers (nine kernels, and the four attention kernels again at bf16
 pools) and, last, the ok line.
 
 Float32 matmuls run in full float32: TF32 is turned off below.
@@ -295,11 +304,13 @@ SWITCH_TOP_K = (16, 50)
 MESH_TP_REQUESTS = 256
 NEAR_TIE = 1.0
 MESH_TP_MAX_DIFFERING = 8
-# the [bench] phase: bench.py's five workloads and README.md's bf16 host
-# command line through ``python -m min_llm_inference_tpu_torch.bench``,
-# each beside the label of this script's own path for that configuration
-# in PATH_WALLS (None: the script has none; its flat path is ``attn_flat``,
-# for which bench.py has no flag)
+# the [bench] phase: bench.py's five workloads, README.md's bf16 host
+# command line and the host engine on gpt2s (a bf16 model of twelve
+# layers: its prefill through the prefill attention kernel, lengths a
+# column of the uploaded block) through ``python -m
+# min_llm_inference_tpu_torch.bench``, each beside the label of this
+# script's own path for that configuration in PATH_WALLS (None: the script
+# has none; its flat path is ``attn_flat``, for which bench.py has no flag)
 BENCH_WORKLOADS = (
     ((), "main"),
     (("--model", "gpt2s"), "gpt2s"),
@@ -309,6 +320,7 @@ BENCH_WORKLOADS = (
      "overcommit"),
     (("--engine", "host", "--kv-dtype", "bfloat16", "--rounds", "32"),
      "bf16-kv-host-grouped"),
+    (("--engine", "host", "--model", "gpt2s"), None),
 )
 BENCH_REPEATS = 3
 # the serving bench's open-loop arrival rate (requests/s)
@@ -992,6 +1004,114 @@ def check_prefill(name, t, timed):
     return res
 
 
+# the causal prefill attention's cases: the long-prompt cell's busiest
+# block (64 prompts of 512-896 tokens padded to 1024; timed), the
+# reasoning cell's (16-128 padded to 128; timed), the tile edges, and every
+# head dim at a row count that is no tile multiple
+PREFILL_ATTN_CASES = (
+    ("long-prompt", 64, 1024, 12, 64, (512, 896), (), True),
+    ("reasoning", 64, 128, 12, 64, (16, 128), (), True),
+    ("edges", 8, 1024, 12, 64, (512, 896),
+     (0, 1, 31, 32, 33, 512, 896, 1024), False),
+    *((f"dh{dh}", 4, 100, 2, dh, (1, 100), (100, 65, 33, 0), False)
+      for dh in range(16, 129, 16)),
+)
+BF16_TENSOR_FLOPS = 989e12
+
+
+def prefill_attn_bound(lens, S, H, dh) -> tuple:
+    """Least time in ms of one causal prefill attention over prompts of
+    ``lens`` padded to S: q, k and v rows below each length read once, the
+    whole [M, S, D] output written once, or the tensor-core operations
+    (q . k once and P . V in three bf16 terms over the causal pairs, 2 + 6
+    operations a pair and feature) at the bf16 peak. Returns (ms, by,
+    bytes_ms, ops_ms)."""
+    D = H * dh
+    nbytes = 3 * sum(lens) * D * 2 + len(lens) * S * D * 2 + len(lens) * 4
+    pairs = H * sum(n * (n + 1) // 2 for n in lens)
+    ms, by = bound_of(nbytes, 8 * pairs * dh, BF16_TENSOR_FLOPS)
+    return (ms, by, nbytes / HBM_BYTES_PER_S * 1e3,
+            8 * pairs * dh / BF16_TENSOR_FLOPS * 1e3)
+
+
+def check_prefill_attn(dev, seed, name, M, S, H, dh, span, edges, timed):
+    """The prefill attention kernel against its plain version on one case
+    (tests/test_torch_prefill_attention.py's checks): float32 output within
+    2e-5 of each (row, head)'s scale, bfloat16 output within one bf16 ulp
+    (floored at 1/256 of that scale), zeros on rows at or past the length;
+    two launches counted. Timed: the kernel (events around one call behind
+    a device sleep, and back to back), the plain version, the bound, and
+    scaled_dot_product_attention (is_causal, no length mask, bf16 P) on the
+    same inputs as a yardstick only."""
+    from min_llm_inference_tpu_torch.models.model import (
+        causal_masked_attention as plain,
+    )
+    from min_llm_inference_tpu_torch.ops import prefill_attention as pa
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    D = H * dh
+    q = torch.randn((M, S, D), generator=gen, device=dev).to(torch.bfloat16)
+    kv = torch.randn((M, S, 2 * D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = kv[..., :D], kv[..., D:]
+    lens = rng.integers(span[0], span[1] + 1, M)
+    lens[:len(edges)] = edges
+    lengths = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    before = pa.prefill_causal_attention.launches
+    got32 = pa.prefill_causal_attention(
+        q, k, v, lengths, H, out=torch.empty((M, S, D), device=dev))
+    got16 = pa.prefill_causal_attention(q, k, v, lengths, H)
+    want32 = plain(q.float(), k.float(), v.float(), lengths, H)
+    torch.cuda.synchronize()
+    launches = pa.prefill_causal_attention.launches - before
+    valid = torch.arange(S, device=dev)[None, :] < lengths[:, None].long()
+    if launches != 2 or not all(torch.all(g[~valid] == 0)
+                                for g in (got32, got16)):
+        raise AssertionError(f"prefill-attn {name}: {launches} launches, or "
+                             "rows past the length not zero")
+    heads = (M, S, H, dh)
+    want = want32.reshape(heads)[valid]
+    scale = want.abs().amax(dim=-1, keepdim=True)
+    rel = ((got32.reshape(heads)[valid] - want).abs() / scale).max().item()
+    w16 = want.to(torch.bfloat16).float()
+    _, exp = torch.frexp(torch.maximum(w16.abs(), scale / 256))
+    ulps = ((got16.reshape(heads)[valid].float() - w16).abs()
+            / torch.ldexp(torch.ones_like(w16), exp - 8)).max().item()
+    if not rel <= 2e-5 or not ulps <= 1:
+        raise AssertionError(f"prefill-attn {name}: float32 off by {rel:.3g} "
+                             f"of its scale, bfloat16 by {ulps} ulp")
+    res = {"max_rel_err": rel, "bf16_max_ulps": ulps,
+           "valid_rows": int(valid.sum())}
+    del want32, want, w16, got32
+    if timed:
+        kernel = lambda: pa.prefill_causal_attention(q, k, v, lengths, H)
+        bound = prefill_attn_bound(lens.tolist(), S, H, dh)
+        timed_pair(f"prefill-attn-{name}", res, kernel,
+                   lambda: plain(q, k, v, lengths, H), bound[:2])
+        res["device_ev_ms"] = device_ev_ms(kernel)
+        res["bound_bytes_ms"], res["bound_ops_ms"] = bound[2:]
+        q4, k4, v4 = (t.view(M, S, H, dh).transpose(1, 2) for t in (q, k, v))
+        res["library_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True), 20)
+    log("prefill-attn", case=name, M=M, S=S, H=H, dh=dh,
+        lengths=f"{int(lens.min())}-{int(lens.max())}", launches=launches,
+        f32="close", bf16="within-1-ulp", past_length="zero",
+        **{k_: (f"{x:.6g}" if isinstance(x, float) else x)
+           for k_, x in res.items()})
+    torch.cuda.empty_cache()
+    return res
+
+
+def prefill_attn_phase(dev) -> dict:
+    """[prefill-attn]: every case of PREFILL_ATTN_CASES. Returns the
+    results by case name."""
+    return {c[0]: check_prefill_attn(dev, 17 + i, *c)
+            for i, c in enumerate(PREFILL_ATTN_CASES)}
+
+
 def one_slot_case(rng, dev, B, W, P, D, kv, in_dtype, NP, boundary=False):
     """Random one-slot attention inputs as the host scheduler leaves them:
     a shuffled (fragmented) page table, ~10% dead slots whose stale rows
@@ -1642,6 +1762,7 @@ def counters():
     from min_llm_inference_tpu_torch.ops import paged_attention_dgrid as dg
     from min_llm_inference_tpu_torch.ops import paged_attention_flat as fl
     from min_llm_inference_tpu_torch.ops import paged_attention_grouped as gr
+    from min_llm_inference_tpu_torch.ops import prefill_attention as pfa
     from min_llm_inference_tpu_torch.ops import prefill_scatter as ps
     from min_llm_inference_tpu_torch.ops import ring_flush as rf
     from min_llm_inference_tpu_torch.ops import sampling as sa
@@ -1654,7 +1775,8 @@ def counters():
             "paged_decode_attention": pa.paged_decode_attention,
             "paged_decode_attention_flat": fl.paged_decode_attention_flat,
             "int4_page_self_dot": pr.int4_page_self_dot,
-            "sample_next_token": sa.sample_next_token}
+            "sample_next_token": sa.sample_next_token,
+            "prefill_causal_attention": pfa.prefill_causal_attention}
 
 
 def make_prompts(n, seed, V):
@@ -1938,7 +2060,8 @@ def gpt2s_path(T, dev, gpu_line, dot_dir, profile_dir=None):
     eng, store, wall, launches = timed_run(run, n_req, lambda st: {
         "dgrid_paged_partial": st.rounds * L,
         "ring_flush": (st.bursts - st.skipped) * L,
-        "prefill_quant_scatter": st.prefills * L}, "gpt2s")
+        "prefill_quant_scatter": st.prefills * L,
+        "prefill_causal_attention": st.prefills * (L - 1)}, "gpt2s")
     PATH_WALLS["gpt2s"] = wall
     st = eng.stats
     total = check_outputs(store, n_req, S, V)
@@ -3096,6 +3219,10 @@ def bench_phase(gpu_line) -> None:
                 "must replay the warm run's graphs)")
         if not all(0 < t <= args.requests * (S - 1) for t in totals):
             raise AssertionError(f"bench {flags}: token totals {totals}")
+        if args.model == "gpt2s" and not (
+                kernels["prefill_causal_attention"].launches):
+            raise AssertionError(f"bench {flags}: the prefill attention "
+                                 "kernel never launched")
 
     for rate in (None, SERVING_RATE):
         argv = [] if rate is None else ["--arrival-rate", str(rate)]
@@ -3292,6 +3419,10 @@ SOURCES = {
     # no Pallas kernel: the JAX package samples with XLA
     "sample_next_token": ("sample_next_token.cu",
                           f"{JAX_OPS}/reference.py:170"),
+    # no Pallas kernel: the JAX package's prefill attention is XLA
+    "prefill_causal_attention": (
+        "prefill_attention.cu",
+        "min_llm_inference_tpu/models/model.py:194"),
 }
 
 
@@ -3322,7 +3453,8 @@ def main() -> int:
                     help="also profile one run of each full-width path "
                          "into DIR, once every path has run")
     ap.add_argument("--only",
-                    choices=["mesh-tp", "bf16-kv", "bench", "quality"],
+                    choices=["mesh-tp", "bf16-kv", "bench", "quality",
+                             "prefill-attn"],
                     default=None,
                     help="build the kernels and run this stage alone "
                          "(no kernels line, no last line)")
@@ -3361,6 +3493,11 @@ def main() -> int:
     if args.only == "quality":
         _build.build(_build.SOURCES + _build.HOST_SOURCES)
         quality_phase(gpu_line)
+        return 0
+    if args.only == "prefill-attn":
+        _build.build(("prefill_attention.cu",))
+        prefill_attn_phase(dev)
+        device_times()
         return 0
     if args.only == "bf16-kv":
         _build.build(_build.SOURCES + _build.HOST_SOURCES)
@@ -3455,6 +3592,10 @@ def main() -> int:
     prefill_host = check_prefill("host-prefill-bf16", prefill_case(
         rng, dev, 128, MAIN["n_seq"], MAIN["emb_dim"], P,
         shape[1], MAIN["n_pages"]), timed=True)
+    # the causal prefill attention at the gpt2-small cells' blocks
+    prefill_attn = prefill_attn_phase(dev)
+    errs["prefill_causal_attention"] += [r["max_rel_err"]
+                                         for r in prefill_attn.values()]
     # the host path's one-slot calls: 1024 slots, W = 4 pages of 32 rows,
     # emb 2048, one head, int8 pages, a fragmented table
     one_rand = check_one_slot("host-one-slot-int8", one_slot_case(
@@ -3638,6 +3779,17 @@ def main() -> int:
                [(V_, st_) for V_ in (MAIN["n_vocab"], GPT2_VOCAB)
                 for st_ in SAMPLE_SETTINGS], sample_rand)
            for n in ("ms", "device_ms", "plain_ms", "bound_ms")}))
+    pl, pr_ = prefill_attn["long-prompt"], prefill_attn["reasoning"]
+    entries.append(kernel_entry(
+        "prefill_causal_attention", g_launches["prefill_causal_attention"],
+        errs["prefill_causal_attention"], pl, launches_on="gpt2s",
+        max_err_of="each (row, head)'s largest |out|",
+        bf16_max_ulps=max(r["bf16_max_ulps"] for r in prefill_attn.values()),
+        device_ev_ms=pl["device_ev_ms"], bound_bytes_ms=pl["bound_bytes_ms"],
+        bound_ops_ms=pl["bound_ops_ms"],
+        **{f"reasoning_{n}": pr_[n] for n in (
+            "ms", "device_ms", "device_ev_ms", "plain_ms", "bound_ms",
+            "library_ms")}))
     # the four attention kernels at bfloat16 pools: launches on [bf16-kv]
     # (the grouped kernel in (i), the one-slot kernel in (ii)); dgrid and
     # flat run on no full-width bf16 path, so theirs are phase 4's

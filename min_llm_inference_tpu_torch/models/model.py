@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
+from ..ops import prefill_attention
 from ..ops.reference import (
     feed_forward,
     greedy_next_token,
@@ -178,7 +179,10 @@ def prefill_write_kv(
     layer's K/V through ``write_kv_block(layer_idx, k [M,S,D], v [M,S,D])``
     (the backend masks positions >= prompt_lengths itself). The last
     layer's attention is skipped: the first generated token comes from the
-    decode step."""
+    decode step. The others go to the hand-written kernel
+    (ops/prefill_attention) where ``kernel_takes`` holds for q (CUDA,
+    bfloat16, a head dim of 16, 32, ..., 128), else to
+    ``causal_masked_attention``."""
     M, S = prompts.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=prompts.device)[None, :].expand(M, S)
@@ -196,7 +200,10 @@ def prefill_write_kv(
         write_kv_block(li, k, v)
         if li + 1 < n_layers:
             q = feed_forward(x, layer["wq"])
-            attn_out = causal_masked_attention(
-                q, k, v, prompt_lengths, ctx.local_heads(cfg)
-            )
+            heads = ctx.local_heads(cfg)
+            attend = (prefill_attention.prefill_causal_attention
+                      if prefill_attention.kernel_takes(
+                          q.device, q.dtype, q.shape[-1] // heads)
+                      else causal_masked_attention)
+            attn_out = attend(q, k, v, prompt_lengths, heads)
             h = layer_post(layer, cfg, h, attn_out, ctx)

@@ -690,6 +690,15 @@ _SKIPPED, _ROUNDS, _SLOT_ROUNDS, _PREFILLS = range(4)
 _N_STATS = 4
 
 
+def _round_increments(R: int, b: int, dev) -> torch.Tensor:
+    """[R, b * R] int64 on ``dev`` (a burst's rounds and slot-rounds at
+    width b), made without a copy from pageable host memory, which would
+    sync."""
+    t = torch.full((2,), R, dtype=torch.int64, device=dev)
+    t[1:].fill_(b * R)
+    return t
+
+
 class _Program:
     """The burst over fixed buffers: the state at each executed width (the
     per-slot fields are the width's own, the rest shared), the request
@@ -738,7 +747,7 @@ class _Program:
             engine.attention_impl, min(engine.max_new, b), engine.ctx,
             engine.sampling, engine.params, st, self.prompts, self.plens,
             self.n_real, self.counts, self.status,
-            torch.tensor([R, b * R], dtype=torch.int64, device=dev))
+            _round_increments(R, b, dev))
             for b, st in self.st.items()}
         self.graphs = {}
 
