@@ -9,6 +9,12 @@ the traced run starts its profiler only after the window, on a stretch of
 the same traffic, so that every capture precedes the profiler (a graph with
 conditional nodes captured after a profiler session faults when replayed
 under a later one).
+
+A traced run also turns the program's own tracing on before set-up, so
+that the graphs it captures time their phases on the device, and hands
+what the program counted over the window to the metric readers as
+``run.program`` (``ProgramWindow``). An untraced run leaves the program's
+tracing off: its graphs are those of a run with no benchmark around it.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import types
 
 import torch
 
-from . import spec, trace, weights
+from . import spec, trace
 from .reference import check
 from .reference.model import no_tf32
 from .spans import Spans
@@ -81,10 +87,58 @@ def prepare(cell: dict, cfg: dict, traffic: dict, seed: int, device):
         with h.spans.span("setup.build"):
             _build.build()
     with h.spans.span("setup.weights"):
-        h.params = weights.make(cfg, seed, device)
+        h.params = spec.arch(cfg["arch"]).make_weights(cfg, seed, device)
     loop.setup(h)
     h.sync()
     return h, loop
+
+
+class ProgramWindow:
+    """What the program counted over a window, for the per-layer readers:
+    made as the window starts (it zeroes the global ``PhaseStats`` and the
+    ``ThroughputCounter``'s admission waits, and notes the engine's
+    slot-rounds and each counted kernel wrapper's launches), read by
+    ``close`` as it ends, before the traced stretch."""
+
+    def __init__(self, h) -> None:
+        from min_llm_inference_tpu_torch.metrics import \
+            get_global_throughput_counter
+        from min_llm_inference_tpu_torch.ops import _build
+        from min_llm_inference_tpu_torch.utils.profiling import \
+            get_global_phase_stats
+        self.h = h
+        self.phases = get_global_phase_stats()
+        self.counter = get_global_throughput_counter()
+        self.wrappers = list(_build.COUNTED)
+        self.phases.reset()
+        self.counter.ttfts.clear()
+        self.slot_rounds = h.engine.stats.slot_rounds
+        self.launches = [w.launches for w in self.wrappers]
+
+    def close(self, win: dict) -> dict:
+        """``device_s``: device seconds by phase (from graphs captured with
+        tracing on, folded at each run's final pull); ``slot_rounds``: the
+        engine's executed slot-rounds; ``served_tokens``: the tokens of the
+        window's requests; ``ttfts``: the counter's admission waits (s);
+        ``launches``: each counted kernel wrapper's launches."""
+        return {
+            "device_s": dict(self.phases.device_seconds),
+            "slot_rounds": self.h.engine.stats.slot_rounds
+            - self.slot_rounds,
+            "served_tokens": sum(len(s) for _, s in win["requests"]),
+            "ttfts": list(self.counter.ttfts),
+            "launches": {w.__name__: w.launches - n
+                         for w, n in zip(self.wrappers, self.launches)},
+        }
+
+
+def span_share(program: dict | None, name: str) -> float | None:
+    """100 x the device seconds of the program's span ``name`` over those
+    of ``burst`` in a window; None where either span is absent."""
+    spans = (program or {}).get("device_s", {})
+    if not spans.get("burst") or name not in spans:
+        return None
+    return 100.0 * spans[name] / spans["burst"]
 
 
 def run(cell_name: str, seed: int, seconds: float, traced: bool, device,
@@ -103,6 +157,20 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool, device,
     cfg = cfg or spec.config(cell["config"])
     traffic = traffic or spec.traffic(cell["traffic"])
     device = torch.device(device)
+    if traced:
+        from min_llm_inference_tpu_torch.utils.profiling import set_tracing
+        tracing_was = set_tracing(True)
+    try:
+        return _run(cell, cfg, traffic, seed, seconds, traced, device,
+                    bench, t_start, control)
+    finally:
+        if traced:
+            set_tracing(tracing_was)
+
+
+def _run(cell, cfg, traffic, seed, seconds, traced, device, bench, t_start,
+         control):
+    cell_name = cell["name"]
     h, loop = prepare(cell, cfg, traffic, seed, device)
     t_window = time.perf_counter()
     setup_s = t_window - t_start
@@ -114,7 +182,10 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool, device,
     # walk it
     gc.collect()
     gc.freeze()
+    program = ProgramWindow(h) if traced else None
     win = loop.window(h, seconds)
+    if program is not None:
+        program = program.close(win)
     window_captures = h.engine.stats.captures - captures0
     print(f"window: graph captures {window_captures}", file=sys.stderr)
     peak = (torch.cuda.max_memory_allocated(device)
@@ -170,7 +241,7 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool, device,
 
     run_info = types.SimpleNamespace(cfg=cfg, traffic=traffic,
                                      setup_s=setup_s, window=win,
-                                     profile=prof)
+                                     profile=prof, program=program)
     group = "per_layer" if traced else "end_to_end"
     metrics = {}
     for m in spec.metrics_of(bench, cell_name, group):

@@ -1,8 +1,10 @@
 """mfu_pct (model step): the model FLOPs of the window's requests (their
-real prompt and served tokens, no padding; roofline.model_flops) over the
-window's batch walls times the card's bf16 peak. Batch loops only."""
+real prompt and served tokens, no padding; the ``model_flops`` of the
+configuration's ``arch``) over the window's batch walls times the card's
+bf16 peak. Batch loops only."""
 
-from benchmark.roofline import BF16_FLOPS, model_flops
+from benchmark import spec
+from benchmark.roofline import BF16_FLOPS
 
 
 def read(run):
@@ -10,5 +12,6 @@ def read(run):
     if "walls" not in w:
         return None
     m = run.cfg["model"]
+    model_flops = spec.arch(run.cfg["arch"]).model_flops
     flops = sum(model_flops(m, len(p), len(s)) for p, s in w["requests"])
     return 100.0 * flops / (sum(w["walls"]) * BF16_FLOPS)

@@ -2,11 +2,12 @@
 
 Once the window has closed, a sample of the finished requests, drawn from
 the seed and holding the one with the most served tokens, goes through the
-plain reference (``model.Reference``) once each: prompt, then the served
-tokens. At every served position the reference's logits say how far the
-served token lies below the reference's best token, in standard deviations
-of that position's logits (``gap_sd``). Greedy decoding serves the best
-token, so a sound program reads about 0; a wrong token reads far above it.
+plain reference (the ``Reference`` of the configuration's ``arch``) once
+each: prompt, then the served tokens. At every served position the
+reference's logits say how far the served token lies below the reference's
+best token, in standard deviations of that position's logits
+(``gap_sd``). Greedy decoding serves the best token, so a sound program
+reads about 0; a wrong token reads far above it.
 
 The control puts the reference in the program's place at the precision one
 step below the configuration's (weights in float8 e4m3 instead of
@@ -19,7 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .model import Reference, fp8_weights
+from .. import spec
+from .model import fp8_weights
 
 
 def sample(requests: list, seed: int, n: int) -> list:
@@ -61,6 +63,7 @@ def read(cfg: dict, weights: dict, requests: list,
     ``max_gap_sd`` of the served tokens (``control``: also of the
     control's tokens, as ``control_max_gap_sd``), the served tokens
     compared, and the length-rule faults."""
+    Reference = spec.arch(cfg["arch"]).Reference
     ref = Reference(cfg, weights)
     ctl = Reference(cfg, weights, weight_fn=fp8_weights) if control else None
     worst, worst_ctl, n_tok = 0.0, 0.0, 0

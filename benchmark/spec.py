@@ -1,9 +1,11 @@
 """The benchmark's data, found by name: ``BENCHMARK.json`` at the root of
 the checkout, ``configs/<config>.json``, ``traffic/<mix>.json``,
-``loops/<kind>.py`` and ``metrics/<metric>.py`` under this folder.
+``archs/<arch>.py``, ``loops/<kind>.py`` and ``metrics/<metric>.py`` under
+this folder.
 
-A later cell, traffic mix, loop or metric is a new file here and an entry
-in ``BENCHMARK.json``; nothing in the harness names one.
+A later cell, configuration, architecture, traffic mix, loop or metric is
+a new file here and an entry in ``BENCHMARK.json`` or a configuration;
+nothing in the harness names one.
 """
 
 from __future__ import annotations
@@ -47,6 +49,12 @@ def _module(kind: str, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def arch(name: str):
+    """The module of a configuration's ``arch``: its weights, plain
+    reference and counts (``archs/__init__.py`` says what it provides)."""
+    return _module("archs", name)
 
 
 def loop(kind: str):

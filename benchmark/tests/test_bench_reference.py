@@ -12,13 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from benchmark import spec
 from benchmark.reference import check
-from benchmark.reference.model import (
-    Reference,
-    fp8_weights,
-    gelu_tanh,
-    quantize_pages,
-)
+from benchmark.reference.model import fp8_weights, quantize_pages
+
+gpt2 = spec.arch("gpt2")
+Reference, gelu_tanh = gpt2.Reference, gpt2.gelu_tanh
 
 
 def _cfg(**model):

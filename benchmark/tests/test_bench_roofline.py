@@ -1,12 +1,15 @@
-"""The yardstick's arithmetic pinned to hand-computed values: one ref-block
-round, one gpt2-small round, the contexts they see and the model FLOPs."""
+"""The yardstick's arithmetic (GPT-2's counts, ``archs/gpt2.py``) pinned to
+hand-computed values: one ref-block round, one gpt2-small round, the
+contexts they see and the model FLOPs."""
 
 from __future__ import annotations
 
 import numpy as np
 import pytest
 
-from benchmark import roofline, spec
+from benchmark import spec
+
+gpt2 = spec.arch("gpt2")
 
 
 def test_ref_block_round_bound():
@@ -17,9 +20,9 @@ def test_ref_block_round_bound():
     32,768 B; o, length and table row 1024 * (8192 + 4 + 16) =
     8,409,088 B; 230,739,968 B over 3.35 TB/s = 68.877 us, above the
     838,860,800 multiply-add FLOPs' 12.52 us."""
-    got = roofline.grouped_bound_s(np.full(1024, 100), D=2048, Dk=1024,
-                                   W=4, P=32, in_bytes=2, pool_bytes=1,
-                                   scaled=True)
+    got = gpt2.grouped_bound_s(np.full(1024, 100), D=2048, Dk=1024,
+                               W=4, P=32, in_bytes=2, pool_bytes=1,
+                               scaled=True)
     assert got == pytest.approx(230_739_968 / 3.35e12, rel=1e-12)
 
 
@@ -29,29 +32,29 @@ def test_gpt2_small_round_bound():
     8 = 204,800 B; o, m, l, length, ring start and table entry 1024 *
     3180 = 3,256,320 B; 1,263,325,184 B a layer, 377.11 us, times 12
     layers."""
-    got = roofline.partial_bound_s(np.full(1024, 800), D=768, Dk=768, H=12,
-                                   P=32, in_bytes=2, pool_bytes=1,
-                                   scaled=True, n_layers=12)
+    got = gpt2.partial_bound_s(np.full(1024, 800), D=768, Dk=768, H=12,
+                               P=32, in_bytes=2, pool_bytes=1,
+                               scaled=True, n_layers=12)
     assert got == pytest.approx(12 * 1_263_325_184 / 3.35e12, rel=1e-12)
 
 
 def test_contexts():
-    assert roofline.decode_contexts(5, 3).tolist() == [5, 6, 7]
+    assert gpt2.decode_contexts(5, 3).tolist() == [5, 6, 7]
     # admitted at a span's start: the pages hold the prompt but its last
     # token for the first span, then grow a span at a time
-    assert roofline.ring_partial_rows(5, 6, 4).tolist() == [4, 4, 4, 4, 8, 8]
+    assert gpt2.ring_partial_rows(5, 6, 4).tolist() == [4, 4, 4, 4, 8, 8]
 
 
 def test_attention_bound_follows_the_config():
     reqs = [([1] * 5, [2] * 3)]
     ref = spec.config("ref-block")
-    assert roofline.attention_bound_s(ref, reqs) == pytest.approx(
-        roofline.grouped_bound_s(np.array([5, 6, 7]), 2048, 1024, 4, 32, 2,
-                                 1, True))
+    assert gpt2.attention_bound_s(ref, reqs) == pytest.approx(
+        gpt2.grouped_bound_s(np.array([5, 6, 7]), 2048, 1024, 4, 32, 2,
+                             1, True))
     gpt = spec.config("gpt2-small")
-    assert roofline.attention_bound_s(gpt, reqs) == pytest.approx(
-        roofline.partial_bound_s(np.array([4, 4, 4]), 768, 768, 12, 32, 2,
-                                 1, True, 12))
+    assert gpt2.attention_bound_s(gpt, reqs) == pytest.approx(
+        gpt2.partial_bound_s(np.array([4, 4, 4]), 768, 768, 12, 32, 2,
+                             1, True, 12))
 
 
 def test_model_flops_hand_case():
@@ -65,12 +68,12 @@ def test_model_flops_hand_case():
     m = dict(emb_dim=2, n_vocab=3, ffn_dim=4, n_layers=2,
              use_output_proj=True)
     want = (2 * 64 + 24 + 32) + (2 * 2 * 64 + 2 * 12 + 112)
-    assert roofline.model_flops(m, 3, 2) == want
+    assert gpt2.model_flops(m, 3, 2) == want
 
 
 def test_ref_block_decode_token_flops():
     """The reference block: ~30 MFLOP a served token at context ~100."""
     m = spec.config("ref-block")["model"]
-    per = (roofline.model_flops(m, 1, 101) - roofline.model_flops(m, 1, 1)
+    per = (gpt2.model_flops(m, 1, 101) - gpt2.model_flops(m, 1, 1)
            ) / 100
     assert 29e6 < per < 31e6
