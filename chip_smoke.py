@@ -8,11 +8,19 @@
     python3 chip_smoke.py --only quality     # the build and [quality] alone
     python3 chip_smoke.py --only prefill-attn  # its kernel's build and
                                              # [prefill-attn] alone
+    python3 chip_smoke.py --only deepseek    # [deepseek]: the latent decode,
+                                             # prefill-192 and expert kernels,
+                                             # DeepSeek-V2-Lite whole
 
 Phases, one line each; any failure raises and exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build every kernel from csrc/ (one nvcc per source, in parallel) and
-     the native host scheduler (one c++, in parallel with them);
+     the native host scheduler (one c++, in parallel with them); then
+     [deepseek] (deepseek_phase), while the card is still empty: the
+     latent decode, 192 / 128 prefill and grouped expert kernels at the
+     deepseek-v2-lite cell's shapes against their plain versions, then
+     the model whole with its syncs and each counted kernel's launches
+     (their entries in the kernels line);
   3. hold each kernel against its plain PyTorch version on the card at the
      shapes of the path that runs it (pool bytes bit-identical, partials
      and outputs within a stated tolerance), and time kernel, plain version
@@ -223,6 +231,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -1023,15 +1032,16 @@ def prefill_attn_bound(lens, S, H, dh) -> tuple:
     """Least time in ms of one causal prefill attention over prompts of
     ``lens`` padded to S: q, k and v rows below each length read once, the
     whole [M, S, D] output written once, or the tensor-core operations
-    (q . k once and P . V in three bf16 terms over the causal pairs, 2 + 6
-    operations a pair and feature) at the bf16 peak. Returns (ms, by,
-    bytes_ms, ops_ms)."""
+    the function needs (q . k and P . V once each over the causal pairs,
+    2 + 2 operations a pair and feature; the kernel's three bf16 terms of
+    P are its own choice) at the bf16 peak. Returns (ms, by, bytes_ms,
+    ops_ms)."""
     D = H * dh
     nbytes = 3 * sum(lens) * D * 2 + len(lens) * S * D * 2 + len(lens) * 4
     pairs = H * sum(n * (n + 1) // 2 for n in lens)
-    ms, by = bound_of(nbytes, 8 * pairs * dh, BF16_TENSOR_FLOPS)
+    ms, by = bound_of(nbytes, 4 * pairs * dh, BF16_TENSOR_FLOPS)
     return (ms, by, nbytes / HBM_BYTES_PER_S * 1e3,
-            8 * pairs * dh / BF16_TENSOR_FLOPS * 1e3)
+            4 * pairs * dh / BF16_TENSOR_FLOPS * 1e3)
 
 
 def check_prefill_attn(dev, seed, name, M, S, H, dh, span, edges, timed):
@@ -1110,6 +1120,308 @@ def prefill_attn_phase(dev) -> dict:
     results by case name."""
     return {c[0]: check_prefill_attn(dev, 17 + i, *c)
             for i, c in enumerate(PREFILL_ATTN_CASES)}
+
+
+# DeepSeek-V2-Lite's widths and the deepseek-v2-lite.long-context cell's
+# decode round: 256 slots of contexts 3584-4096 over 128 pages of 32
+DSV2 = dict(B=256, W=128, P=32, heads=16, latent=512, rope=64, scale=0.114721,
+            E=64, D=2048, Fm=1408, k=6)
+
+
+def rel_err(got, want) -> float:
+    """Largest error over each row's largest magnitude."""
+    scale = want.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    return float(((got.float() - want.float()).abs() / scale).max())
+
+
+def deepseek_kernels(dev) -> dict:
+    """[deepseek] kernel lines, returned by check (``mla``, ``prefill``,
+    ``moe-decode``, ``moe-prefill``) as kernel_entry reads them: the
+    absorbed latent decode kernel at the cell's round (256 slots, lengths
+    3584-4096, 8 dead slots with stale table rows) against its plain
+    version, within 2^-7 of each head's scale, dead rows zero; the prefill kernel at 192 / 128 on two of the
+    cell's 4096-row prompts against the plain float32 attention (5e-5 of
+    each row's scale), timed on the cell's 16-prompt block; the grouped
+    SwiGLU of a decode round's 1536 rows against a per-expert loop (2^-6),
+    timed there and on a prefill block's 393,216 rows. Each timed beside
+    its bound (bytes at 3.35 TB/s, tensor-core FLOPs at 989 TFLOP/s)."""
+    from min_llm_inference_tpu_torch.models import deepseek_v2 as ds
+    from min_llm_inference_tpu_torch.ops import mla_decode as md
+    from min_llm_inference_tpu_torch.ops import moe
+    from min_llm_inference_tpu_torch.ops import prefill_attention as pa
+
+    c = DSV2
+    B, W, P, H = c["B"], c["W"], c["P"], c["heads"]
+    Dl = c["latent"] + c["rope"]
+    rng = np.random.default_rng(19)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    out = {}
+    NP = B * W
+    pool = torch.randn((NP, P, Dl), generator=gen, device=dev).to(
+        torch.bfloat16)
+    q = (torch.randn((B, H, Dl), generator=gen, device=dev) * 0.3).to(
+        torch.bfloat16)
+    table = torch.from_numpy(rng.permutation(NP).reshape(B, W)
+                             .astype(np.int32)).to(dev)
+    lens = rng.integers(3584, W * P + 1, B)
+    lens[:3] = [W * P, 3584, 3585]
+    lens[-8:] = 0
+    table[-8:] = table[0]
+    lengths = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    kernel = lambda: md.mla_decode_attention(q, pool, lengths, table,
+                                             c["scale"])
+    got = kernel()
+    want = md.plain_mla_decode(q, pool, lengths, table, c["scale"],
+                               c["latent"])
+    live = lengths > 0
+    err = rel_err(got[live], want[live])
+    if not err <= 2 ** -7 or not torch.all(got[~live] == 0):
+        raise AssertionError(f"mla-decode: off by {err:.3g} of the scale, or "
+                             "dead rows not zero")
+    rows = int(lens.sum())
+    n_live = int((lens > 0).sum())
+    nbytes = rows * Dl * 2 + n_live * H * (Dl + c["latent"]) * 2
+    flops = rows * 2 * H * (Dl + c["latent"])
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS) * 1e3
+    ev = device_ev_ms(kernel)
+    plain_ms = time_ms(lambda: md.plain_mla_decode(
+        q, pool, lengths, table, c["scale"], c["latent"]), 3)
+    by = "bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_TENSOR_FLOPS \
+        else "operations"
+    out["mla"] = dict(ms=ev, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                      max_abs_err=err)
+    log("deepseek", case="mla-decode", B=B, W=W, P=P, live=n_live,
+        lengths=f"{int(lens[lens > 0].min())}-{int(lens.max())}",
+        max_rel_err=f"{err:.3g}", dead_rows="zero",
+        splits=md.splits(B, W, P)[0], device_ev_ms=f"{ev:.5g}",
+        plain_ms=f"{plain_ms:.5g}", bound_ms=f"{bound:.5g}", bound_by=by,
+        roofline_pct=f"{100 * bound / ev:.4g}")
+    del pool, want
+    torch.cuda.empty_cache()
+
+    # prefill at 192 / 128: two prompts checked, the 16-prompt block timed
+    M, S = 16, 4096
+    qp = torch.randn((M, S, H * 192), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kp = torch.randn((M, S, H * 192), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kvp = torch.randn((M, S, H * 256), generator=gen, device=dev).to(
+        torch.bfloat16)
+    vp = kvp[..., H * 128:]
+    plens = rng.integers(3584, 3969, M)
+    lengths = torch.from_numpy(plens.astype(np.int32)).to(dev)
+    want = ds.causal_attention(qp[:2].float(), kp[:2].float(), vp[:2].float(),
+                               lengths[:2], H, c["scale"])
+    got32 = torch.empty((2, S, H * 128), device=dev)
+    pa.prefill_causal_attention(qp[:2], kp[:2], vp[:2], lengths[:2], H,
+                                out=got32, scale=c["scale"])
+    errs = []
+    for m in range(2):
+        n = int(plens[m])
+        errs.append(rel_err(got32[m, :n].view(n, H, 128),
+                            want[m, :n].view(n, H, 128)))
+        if not torch.all(got32[m, n:] == 0):
+            raise AssertionError("prefill-192: rows past the length")
+    # 5e-5: four times the 1024-row cases' 2e-5, the float32 sums over up
+    # to 4096 keys taken in another order than the plain version's
+    if not max(errs) <= 5e-5:
+        raise AssertionError(f"prefill-192: off by {max(errs):.3g}")
+    del want, got32
+    kernel = lambda: pa.prefill_causal_attention(qp, kp, vp, lengths, H,
+                                                 scale=c["scale"])
+    # q . k and P . V once each: the kernel's three bf16 terms of P are its
+    # own choice, not work the function needs
+    pairs = float(sum(n * (n + 1) / 2 for n in plens))
+    flops = pairs * H * 2 * (192 + 128)
+    nbytes = M * S * H * (192 * 2 + 128 * 2) * 2
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_TENSOR_FLOPS \
+        else "operations"
+    ev = device_ev_ms(kernel, 5)
+    out["prefill"] = dict(ms=ev, bound_ms=bound, bound_by=by,
+                          max_abs_err=max(errs))
+    log("deepseek", case="prefill-192-128", M=M, S=S, H=H,
+        lengths=f"{int(plens.min())}-{int(plens.max())}",
+        max_rel_err=f"{max(errs):.3g}", past_length="zero",
+        device_ev_ms=f"{ev:.5g}", bound_ms=f"{bound:.5g}", bound_by=by,
+        roofline_pct=f"{100 * bound / ev:.4g}")
+    del qp, kp, kvp
+    torch.cuda.empty_cache()
+
+    # the grouped SwiGLU of the experts
+    E, D, Fm, k = c["E"], c["D"], c["Fm"], c["k"]
+    w_gu = (torch.randn((E, D, 2 * Fm), generator=gen, device=dev)
+            * 0.02).to(torch.bfloat16)
+    w_dn = (torch.randn((E, Fm, D), generator=gen, device=dev) * 0.02).to(
+        torch.bfloat16)
+    for name, n in (("decode", B * k), ("prefill", M * S * k)):
+        xs = torch.randn((n, D), generator=gen, device=dev).to(torch.bfloat16)
+        ids = np.sort(rng.integers(0, E, n))
+        ends = torch.from_numpy(np.searchsorted(ids, np.arange(1, E + 1))
+                                .astype(np.int32)).to(dev)
+        kernel = lambda: moe.grouped_swiglu(xs, ends, w_gu, w_dn)
+        line, res = {}, {}
+        if name == "decode":
+            got = kernel()
+            want = torch.empty_like(got)
+            start = 0
+            for e, end in enumerate(ends.tolist()):
+                want[start:end] = ds.swiglu(xs[start:end], w_gu[e], w_dn[e])
+                start = end
+            err = rel_err(got, want)
+            if not err <= 2 ** -6:
+                raise AssertionError(f"grouped-swiglu: off by {err:.3g}")
+            line["max_rel_err"] = f"{err:.3g}"
+            res["max_abs_err"] = err
+        nbytes = (w_gu.numel() + w_dn.numel()) * 2 + n * (2 * D + 3 * Fm) * 2
+        flops = n * 6 * D * Fm
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_PER_S > flops / BF16_TENSOR_FLOPS \
+            else "operations"
+        ev = device_ev_ms(kernel, 10)
+        out[f"moe-{name}"] = dict(ms=ev, bound_ms=bound, bound_by=by, **res)
+        log("deepseek", case=f"grouped-swiglu-{name}", rows=n, **line,
+            device_ev_ms=f"{ev:.5g}", bound_ms=f"{bound:.5g}", bound_by=by,
+            roofline_pct=f"{100 * bound / ev:.4g}")
+        del xs
+    del w_gu, w_dn
+    torch.cuda.empty_cache()
+    return out
+
+
+def deepseek_path(T, dev, gpu_line) -> dict:
+    """[deepseek] path: DeepSeek-V2-Lite whole (27 layers, 64 + 2 experts,
+    vocab 102400) on AutonomousEngine with the cell's engine (256 slots,
+    a full-grant latent pool of 32768 pages, 16 admissions a burst, drain
+    to 128): a 32-request warm run under the sync debug mode (its syncs:
+    two uploads, one status read a chunk, the final pull; none inside a
+    burst, which is captured), then a timed replay of the same queue
+    shape, whose launches must be the latent decode kernel's 27 a round,
+    the 192 / 128 prefill kernel's 26 a prefill block (the plain attention
+    never taken on the card), the grouped SwiGLU's 26 a round and 25 a
+    block, and no other counted kernel's. Peak memory and the card beside
+    the walls. Returns the timed run's launches by kernel name."""
+    from min_llm_inference_tpu_torch.models import deepseek_v2 as ds
+
+    model = T.ModelConfig(arch="deepseek_v2", n_vocab=102400, emb_dim=2048,
+                          n_seq=4096, n_layers=27, n_heads=16, ffn_dim=10944,
+                          dtype="bfloat16", eof_token_id=100001)
+    cfg = T.EngineConfig(n_slots=256, n_forward_rounds=16, page_size=32,
+                         n_pages=32768, kv_dtype="bfloat16",
+                         max_prefill_batch=16, decode_ring=False)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = ds.init_params(model, 0, dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    eng = T.AutonomousEngine(params, model, cfg, device=dev,
+                             max_new_per_burst=16,
+                             bursts_per_chunk=6, request_capacity=256,
+                             min_drain_slots=128)
+    rng = np.random.default_rng(5)
+
+    plens = {}
+
+    def store(n):
+        st = T.ItemStorage()
+        for i in range(n):
+            plens[i] = int(rng.integers(3584, 3969))
+            st.add_new_item(T.Request(i, rng.integers(
+                0, 100001, plens[i]).tolist()))
+        return st
+
+    def run(n, count_syncs):
+        eng.stats = T.BurstStats()
+        st = store(n)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        seen = []
+        if count_syncs:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    eng.run(st)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        else:
+            eng.run(st)
+        torch.cuda.synchronize()
+        pkg = os.path.dirname(T.__file__)
+        n_seen = sum(1 for w in seen if "synchroniz" in str(w.message)
+                     and w.filename.startswith(pkg))
+        return st, time.perf_counter() - t, n_seen
+
+    st, wall, n_seen = run(32, True)
+    s = eng.stats
+    want = 2 + -(-s.bursts // eng.chunk) + 1
+    log("syncs", path="deepseek", requests=32, bursts=s.bursts,
+        engine_count=s.host_syncs, seen_in_package=n_seen,
+        captures=s.captures, warm_wall_s=f"{wall:.3f}")
+    if n_seen != s.host_syncs or s.host_syncs != want or s.captures != 2:
+        raise AssertionError(f"deepseek: {n_seen} syncs seen, the engine "
+                             f"counts {s.host_syncs}, expected {want}; "
+                             f"{s.captures} captures")
+    for b, g in sorted(eng.graph_info.items(), reverse=True):
+        log("graph", path="deepseek", width=b,
+            capture_s=f"{g['capture_s']:.4f}",
+            instantiate_s=f"{g['instantiate_s']:.4f}",
+            pool_bytes=g["pool_bytes"])
+    kernels = counters()
+    for k in kernels.values():
+        k.launches = 0
+    st, wall, _ = run(256, False)
+    s = eng.stats
+    launches = {name: k.launches for name, k in kernels.items()}
+    want = {name: 0 for name in kernels}
+    L = model.n_layers
+    want.update(mla_decode_attention=s.rounds * L,
+                prefill_causal_attention=s.prefills * (L - 1),
+                grouped_swiglu=s.rounds * (L - 1) + s.prefills * (L - 2))
+    served = sum(len(st.finished[i].tokens) - plens[i] for i in st.finished)
+    log("deepseek", path="batch-256", gpu=f"'{gpu_line}'", wall_s=f"{wall:.3f}",
+        served=served, tok_s=f"{served / wall:.1f}", rounds=s.rounds,
+        prefills=s.prefills, captures=s.captures, slot_rounds=s.slot_rounds,
+        expert_rows=s.expert_rows, expert_rows_max=s.expert_rows_max,
+        host_syncs=s.host_syncs, draw_s=f"{draw_s:.2f}",
+        peak_gb=f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f}",
+        **{f"launches_{k}": v for k, v in launches.items() if v})
+    if s.captures:
+        raise AssertionError("deepseek: the timed run captured a graph")
+    if launches != want or not s.rounds or not s.prefills:
+        raise AssertionError(f"deepseek launches {launches}, expected {want}")
+    return launches
+
+
+def deepseek_phase(T, dev, gpu_line) -> tuple:
+    """[deepseek]: the kernel checks at the cell's shapes, then the model
+    whole; the card's memory handed back after. Returns (the kernels
+    line's entries of the latent decode kernel and of the grouped SwiGLU,
+    a library call; the prefill kernel's readings at 192 / 128, as keys of
+    that kernel's entry)."""
+    res = deepseek_kernels(dev)
+    launches = deepseek_path(T, dev, gpu_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dec, pf = res["moe-decode"], res["prefill"]
+    return [
+        kernel_entry("mla_decode_attention", launches["mla_decode_attention"],
+                     [res["mla"]["max_abs_err"]], res["mla"],
+                     launches_on="deepseek",
+                     max_err_of="each head's largest |out|"),
+        {"name": "grouped_swiglu", "route": "torch._grouped_mm",
+         "source": "min_llm_inference_tpu_torch/ops/moe.py",
+         "replaces": "none: the JAX package has no experts",
+         "launches": launches["grouped_swiglu"], "launches_on": "deepseek",
+         "max_abs_err": dec["max_abs_err"],
+         "max_err_of": "each row's largest |out|", "ms": dec["ms"],
+         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+         **{f"prefill_block_{k}": res["moe-prefill"][k]
+            for k in ("ms", "bound_ms", "bound_by")}}], {
+        "deepseek_launches": launches["prefill_causal_attention"],
+        **{f"dk192_dv128_{k}": pf[k]
+           for k in ("max_abs_err", "ms", "bound_ms", "bound_by")}}
 
 
 def one_slot_case(rng, dev, B, W, P, D, kv, in_dtype, NP, boundary=False):
@@ -1758,6 +2070,8 @@ def host_parity(T, dev) -> tuple:
 
 def counters():
     """The launch counter of every kernel wrapper, by kernel name."""
+    from min_llm_inference_tpu_torch.ops import mla_decode as md
+    from min_llm_inference_tpu_torch.ops import moe
     from min_llm_inference_tpu_torch.ops import paged_attention as pa
     from min_llm_inference_tpu_torch.ops import paged_attention_dgrid as dg
     from min_llm_inference_tpu_torch.ops import paged_attention_flat as fl
@@ -1776,7 +2090,9 @@ def counters():
             "paged_decode_attention_flat": fl.paged_decode_attention_flat,
             "int4_page_self_dot": pr.int4_page_self_dot,
             "sample_next_token": sa.sample_next_token,
-            "prefill_causal_attention": pfa.prefill_causal_attention}
+            "prefill_causal_attention": pfa.prefill_causal_attention,
+            "mla_decode_attention": md.mla_decode_attention,
+            "grouped_swiglu": moe.grouped_swiglu}
 
 
 def make_prompts(n, seed, V):
@@ -3423,6 +3739,8 @@ SOURCES = {
     "prefill_causal_attention": (
         "prefill_attention.cu",
         "min_llm_inference_tpu/models/model.py:194"),
+    "mla_decode_attention": ("mla_decode.cu",
+                             "none: the JAX package has no latent attention"),
 }
 
 
@@ -3454,7 +3772,7 @@ def main() -> int:
                          "into DIR, once every path has run")
     ap.add_argument("--only",
                     choices=["mesh-tp", "bf16-kv", "bench", "quality",
-                             "prefill-attn"],
+                             "prefill-attn", "deepseek"],
                     default=None,
                     help="build the kernels and run this stage alone "
                          "(no kernels line, no last line)")
@@ -3499,6 +3817,13 @@ def main() -> int:
         prefill_attn_phase(dev)
         device_times()
         return 0
+    if args.only == "deepseek":
+        _build.build(("mla_decode.cu", "prefill_attention.cu",
+                      "graph_cond.cu"))
+        entries, pf192 = deepseek_phase(T, dev, gpu_line)
+        print(json.dumps({"deepseek_kernels": entries, "prefill_192_128":
+                          pf192}), flush=True)
+        return 0
     if args.only == "bf16-kv":
         _build.build(_build.SOURCES + _build.HOST_SOURCES)
         dot_dir = tempfile.mkdtemp(prefix="burst-graphs-")
@@ -3519,6 +3844,10 @@ def main() -> int:
             nvcc_s=f"{took.get(item, 0.0):.2f}",
             ptxas=f"'{' | '.join(ptxas[:4])}'")
     log("build", total_s=f"{time.perf_counter() - t0:.2f}")
+
+    # DeepSeek-V2-Lite first, while nothing else holds the card's memory
+    # (its weights and pool take 64 GB of the 80)
+    ds_entries, ds_prefill = deepseek_phase(T, dev, gpu_line)
 
     rng = np.random.default_rng(0)
     # the main path's shapes: 1024 slots, W = 4 pages of 32 rows, 4096
@@ -3789,7 +4118,8 @@ def main() -> int:
         bound_ops_ms=pl["bound_ops_ms"],
         **{f"reasoning_{n}": pr_[n] for n in (
             "ms", "device_ms", "device_ev_ms", "plain_ms", "bound_ms",
-            "library_ms")}))
+            "library_ms")}, **ds_prefill))
+    entries += ds_entries
     # the four attention kernels at bfloat16 pools: launches on [bf16-kv]
     # (the grouped kernel in (i), the one-slot kernel in (ii)); dgrid and
     # flat run on no full-width bf16 path, so theirs are phase 4's

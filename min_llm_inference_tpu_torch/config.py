@@ -2,6 +2,10 @@
 
 Same fields, defaults and ``validate()`` as min_llm_inference_tpu/config.py,
 so a JAX config converts field for field (``EngineConfig(**asdict(cfg))``).
+``ModelConfig(arch="deepseek_v2", ...)`` builds a ``DeepSeekV2Config``, the
+port's one architecture the JAX package lacks (latent attention and routed
+experts); a config without ``arch`` is the JAX package's model, field for
+field.
 The port's engines run every option. ``pages_per_dma``,
 ``attn_group_size`` and ``dgrid_block`` chose the TPU kernels' DMA runs
 and blocks: they are accepted and validated, and nothing here reads them.
@@ -35,6 +39,17 @@ class ModelConfig:
     use_output_proj=False`` this is the reference's single attention block
     (include/inference_model.h:8-74)."""
 
+    def __new__(cls, *args, **kwargs):
+        # ModelConfig(**fields) of another architecture builds that
+        # architecture's config (the benchmark's configuration files name
+        # it in their ``model`` group)
+        arch = kwargs.get("arch", "gpt2")
+        if cls is ModelConfig and arch != "gpt2":
+            if arch != "deepseek_v2":
+                raise ValueError(f"unknown model arch {arch!r}")
+            cls = DeepSeekV2Config
+        return super().__new__(cls)
+
     n_vocab: int = 1024
     emb_dim: int = 64
     n_seq: int = 64  # max sequence length (prompt + generated), incl. cap
@@ -55,10 +70,86 @@ class ModelConfig:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    @property
+    def is_mla(self) -> bool:
+        """Latent attention over a latent pool (DeepSeekV2Config)."""
+        return False
+
     def validate(self) -> None:
         assert self.n_vocab > 0 and self.emb_dim > 0 and self.n_seq > 0
         assert self.emb_dim % self.n_heads == 0
         assert 0 <= self.eof_token_id < self.n_vocab
+
+
+def _yarn_default() -> dict:
+    return {"type": "yarn", "factor": 40, "original_max_position_embeddings":
+            4096, "beta_fast": 32, "beta_slow": 1, "mscale": 0.707,
+            "mscale_all_dim": 0.707}
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekV2Config(ModelConfig):
+    """DeepSeek-V2's decoder (models/deepseek_v2.py): RMSNorm, multi-head
+    latent attention with YaRN RoPE, a dense SwiGLU MLP in the first
+    ``first_k_dense_replace`` layers (``ffn_dim`` wide) and routed plus
+    shared SwiGLU experts in the rest, an untied head. The keys after
+    ``arch`` are the published config's (huggingface.co/deepseek-ai/
+    DeepSeek-V2-Lite config.json); the defaults are DeepSeek-V2-Lite's.
+    ``use_output_proj`` and ``use_layernorm`` are the JAX model's and are
+    not read."""
+
+    arch: str = "deepseek_v2"
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+    rope_scaling: dict = dataclasses.field(default_factory=_yarn_default,
+                                           hash=False)
+    rms_norm_eps: float = 1e-6
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    moe_intermediate_size: int = 1408
+    n_shared_experts: int = 2
+    first_k_dense_replace: int = 1
+    norm_topk_prob: bool = False
+    routed_scaling_factor: float = 1.0
+
+    @property
+    def is_mla(self) -> bool:
+        return True
+
+    @property
+    def head_dim(self) -> int:
+        """The q . k width of a head (nope + rope)."""
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """A latent pool row: c_kv, then the roped k_pe."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    def validate(self) -> None:
+        assert self.n_vocab > 0 and self.emb_dim > 0 and self.n_seq > 0
+        assert 0 <= self.eof_token_id < self.n_vocab
+        assert self.qk_rope_head_dim % 2 == 0
+        assert 0 < self.num_experts_per_tok <= self.n_routed_experts
+        assert 0 <= self.first_k_dense_replace <= self.n_layers
+        assert self.ffn_dim > 0 or self.first_k_dense_replace == 0
+        assert self.rope_scaling.get("type", "yarn") == "yarn", (
+            "only YaRN rope scaling is implemented")
+
+
+
+def refuse_latent(model_cfg: ModelConfig, engine: str) -> None:
+    """Raise for a latent-attention model (DeepSeekV2Config) on an engine
+    that serves multi-head attention over K/V pools only: the host engines
+    and the dp x tp mesh engines."""
+    if model_cfg.is_mla:
+        raise ValueError(
+            f"{engine} serves multi-head attention over K/V pools; "
+            f"{type(model_cfg).__name__} (latent attention, routed experts) "
+            "runs on AutonomousEngine")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +200,15 @@ class EngineConfig:
 
     def validate(self, model: ModelConfig) -> None:
         assert self.n_slots > 0 and self.n_pages > 0
+        if model.is_mla:
+            # one latent row a token, shared by the heads: no K/V planes,
+            # scales, packing or ring, and full grants only
+            assert self.kv_dtype in ("float32", "bfloat16"), (
+                "a latent pool is float32 or bfloat16")
+            assert not (self.decode_ring or self.overcommit or self.attn_flat
+                        or self.attn_dense or self.attn_dgrid), (
+                "latent attention runs without the decode ring, overcommit "
+                "and the ring formulations")
         assert self.kv_dtype in ("float32", "bfloat16", "int8", "int4"), (
             f"unsupported kv_dtype {self.kv_dtype!r}"
         )

@@ -10,12 +10,14 @@
 // of 512-896 tokens padded to S = 1024, 12 heads of 64) that is 3.2 GB a
 // pass, ~20-25 ms a layer, where the work itself is ~0.1 ms.
 //
-// Contract. q, k, v: [M, S, H * DH] bfloat16 with row strides (s0 over M,
-// s1 over S; unit inner stride: k and v may be the two halves of one fused
-// [M, S, 2D] projection); lengths: [M] int32 on the device, at any
-// element stride (a column of a larger block does). For every
+// Contract. q, k: [M, S, H * DK], v: [M, S, H * DV] bfloat16 with row
+// strides (s0 over M, s1 over S; unit inner stride: k and v may be column
+// slices of one fused projection); lengths: [M] int32 on the device, at
+// any element stride (a column of a larger block does). DK = DV = 16, 32,
+// ..., 128 (multi-head attention), or DK = 192 and DV = 128 (latent
+// attention's prefill: k_nope and the shared roped k_pe a head). For every
 // prompt m, head h and row i < lengths[m]:
-//   out[m, i, h*DH + d] = sum_j p_j v[m, j, h*DH + d],
+//   out[m, i, h*DV + d] = sum_j p_j v[m, j, h*DV + d],
 //   p = softmax_j(scale * q_i . k_j) over j <= i and j < lengths[m];
 // rows lengths[m] <= i < S are written as zeros. out is float32 or
 // bfloat16 (rounded to nearest once, at the end).
@@ -65,13 +67,19 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;               // bf16 padding a shared-memory row
 constexpr int kMaxDevices = 64;
 
-template <int DH>
+// A tile of 64 rows of width D in shared memory
+template <int D>
 struct Tile {
-  static constexpr int kRow = DH + kPad;          // elements a smem row
+  static constexpr int kRow = D + kPad;           // elements a smem row
   static constexpr int kElems = kBlockM * kRow;   // one tile (kBlockN rows)
-  static constexpr int kChunks = DH / 8;          // 16-byte chunks a row
-  static constexpr int kSmem = 5 * kElems * 2;    // Q, K x 2, V x 2
+  static constexpr int kChunks = D / 8;           // 16-byte chunks a row
 };
+
+// Q, K x 2 (DK wide), V x 2 (DV wide)
+template <int DK, int DV>
+constexpr int smem_bytes() {
+  return (3 * Tile<DK>::kElems + 2 * Tile<DV>::kElems) * 2;
+}
 static_assert(kBlockM == kBlockN, "one tile shape for Q, K and V");
 
 struct Args {
@@ -178,13 +186,13 @@ __device__ __forceinline__ void p_fragments(const float (&s0)[4],
 
 // Rows [r_begin, r_end) of head h of prompt m written as zeros, 16 bytes a
 // store.
-template <int DH>
+template <int DV>
 __device__ __forceinline__ void zero_rows(const Args& a, int m, int h, int r_begin,
                           int r_end) {
   const int esize = a.out_f32 ? 4 : 2;
-  const int per_row = DH * esize / 16;
+  const int per_row = DV * esize / 16;
   char* base = static_cast<char*>(a.out) +
-               (static_cast<long long>(m) * a.o_s0 + h * DH) * esize;
+               (static_cast<long long>(m) * a.o_s0 + h * DV) * esize;
   for (int idx = threadIdx.x; idx < (r_end - r_begin) * per_row;
        idx += kThreads) {
     const int r = r_begin + idx / per_row, c = idx % per_row;
@@ -193,13 +201,13 @@ __device__ __forceinline__ void zero_rows(const Args& a, int m, int h, int r_beg
   }
 }
 
-// Rows row0 .. row0 + 63 of one head of one prompt (rows at or past
-// `limit` zero-filled) into a padded shared-memory tile.
-template <int DH>
+// Rows row0 .. row0 + 63 of one head of one prompt, D wide (rows at or
+// past `limit` zero-filled), into a padded shared-memory tile.
+template <int D>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* base,
                                           long long s1, int row0, int limit) {
-  using T = Tile<DH>;
+  using T = Tile<D>;
 #pragma unroll
   for (int i = 0; i < kBlockM * T::kChunks / kThreads; ++i) {
     const int idx = threadIdx.x + i * kThreads;
@@ -211,16 +219,19 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-template <int DH>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
     causal_prefill_kernel(const Args a) {
-  using T = Tile<DH>;
-  static_assert(DH % 16 == 0 && DH <= 128, "head dim a multiple of 16");
-  static_assert(kBlockM * T::kChunks % kThreads == 0, "whole load steps");
+  using TK = Tile<DK>;
+  using TV = Tile<DV>;
+  static_assert(DK % 16 == 0 && DV % 16 == 0 && DK <= 192 && DV <= 128,
+                "head widths multiples of 16");
+  static_assert(kBlockM * TK::kChunks % kThreads == 0 &&
+                kBlockM * TV::kChunks % kThreads == 0, "whole load steps");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + T::kElems;      // two buffers
-  __nv_bfloat16* sV = sK + 2 * T::kElems;  // two buffers
+  __nv_bfloat16* sK = sQ + TK::kElems;      // two buffers
+  __nv_bfloat16* sV = sK + 2 * TK::kElems;  // two buffers
 
   // the last query tiles (the most keys) first
   const int mh = a.M * a.H;
@@ -230,29 +241,29 @@ __global__ void __launch_bounds__(kThreads)
   const int len = min(max(a.lengths[m * a.len_s0], 0), a.S);
   const int r0 = qt * kBlockM;
   if (r0 >= len) {
-    zero_rows<DH>(a, m, h, r0, min(r0 + kBlockM, a.S));
+    zero_rows<DV>(a, m, h, r0, min(r0 + kBlockM, a.S));
     return;
   }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // the last key any valid row of the tile attends to
   const int last = min(r0 + kBlockM, len) - 1;
   const int n_k = last / kBlockN + 1;
-  const __nv_bfloat16* qb = a.q + m * a.q_s0 + h * DH;
-  const __nv_bfloat16* kb = a.k + m * a.k_s0 + h * DH;
-  const __nv_bfloat16* vb = a.v + m * a.v_s0 + h * DH;
+  const __nv_bfloat16* qb = a.q + m * a.q_s0 + h * DK;
+  const __nv_bfloat16* kb = a.k + m * a.k_s0 + h * DK;
+  const __nv_bfloat16* vb = a.v + m * a.v_s0 + h * DV;
 
-  load_tile<DH>(sQ, qb, a.q_s1, r0, len);
-  load_tile<DH>(sK, kb, a.k_s1, 0, len);
-  load_tile<DH>(sV, vb, a.v_s1, 0, len);
+  load_tile<DK>(sQ, qb, a.q_s1, r0, len);
+  load_tile<DK>(sK, kb, a.k_s1, 0, len);
+  load_tile<DV>(sV, vb, a.v_s1, 0, len);
   cp_async_commit();
 
   const int wrow = warp * 16;
   const int warp_last = r0 + wrow + 15;
   const int row_a = r0 + wrow + (lane >> 2);  // this thread's rows: +0, +8
-  uint32_t qf[DH / 16][4];
-  float o[DH / 8][4];
+  uint32_t qf[DK / 16][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int d = 0; d < DH / 8; ++d)
+  for (int d = 0; d < DV / 8; ++d)
     o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
   float row_max[2] = {-INFINITY, -INFINITY};
   float row_sum[2] = {0.f, 0.f};
@@ -260,9 +271,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < n_k; ++j) {
     const int buf = j & 1;
     if (j + 1 < n_k) {
-      load_tile<DH>(sK + (buf ^ 1) * T::kElems, kb, a.k_s1, (j + 1) * kBlockN,
+      load_tile<DK>(sK + (buf ^ 1) * TK::kElems, kb, a.k_s1, (j + 1) * kBlockN,
                     len);
-      load_tile<DH>(sV + (buf ^ 1) * T::kElems, vb, a.v_s1, (j + 1) * kBlockN,
+      load_tile<DV>(sV + (buf ^ 1) * TV::kElems, vb, a.v_s1, (j + 1) * kBlockN,
                     len);
       cp_async_commit();
       cp_async_wait<1>();
@@ -272,12 +283,12 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
-        ldmatrix_x4(qf[kk], smem_u32(sQ + (wrow + (lane & 15)) * T::kRow +
+      for (int kk = 0; kk < DK / 16; ++kk)
+        ldmatrix_x4(qf[kk], smem_u32(sQ + (wrow + (lane & 15)) * TK::kRow +
                                      kk * 16 + (lane >> 4) * 8));
     }
-    const __nv_bfloat16* tK = sK + buf * T::kElems;
-    const __nv_bfloat16* tV = sV + buf * T::kElems;
+    const __nv_bfloat16* tK = sK + buf * TK::kElems;
+    const __nv_bfloat16* tV = sV + buf * TV::kElems;
     const int key0 = j * kBlockN;
     // the 8-key groups of this tile that hold a key this warp's rows may
     // see (at most its last row, below the length); the rest are masked
@@ -289,13 +300,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int n = 0; n < kBlockN / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
+    for (int kk = 0; kk < DK / 16; ++kk) {
 #pragma unroll
       for (int n2 = 0; n2 < kBlockN / 16; ++n2) {
         if (2 * n2 <= groups) {
           uint32_t b[4];
           ldmatrix_x4(b, smem_u32(tK + (n2 * 16 + (lane & 7) +
-                                        ((lane >> 4) << 3)) * T::kRow +
+                                        ((lane >> 4) << 3)) * TK::kRow +
                                   kk * 16 + ((lane >> 3) & 1) * 8));
           mma(s[2 * n2], qf[kk], b[0], b[1]);
           mma(s[2 * n2 + 1], qf[kk], b[2], b[3]);
@@ -328,7 +339,7 @@ __global__ void __launch_bounds__(kThreads)
       row_max[i] = mx[i];
       row_sum[i] *= alpha;
 #pragma unroll
-      for (int d = 0; d < DH / 8; ++d) {
+      for (int d = 0; d < DV / 8; ++d) {
         o[d][2 * i] *= alpha;
         o[d][2 * i + 1] *= alpha;
       }
@@ -350,9 +361,9 @@ __global__ void __launch_bounds__(kThreads)
         uint32_t pa[3][4];
         p_fragments(s[2 * kt], s[2 * kt + 1], pa);
 #pragma unroll
-        for (int d2 = 0; d2 < DH / 16; ++d2) {
+        for (int d2 = 0; d2 < DV / 16; ++d2) {
           uint32_t b[4];
-          ldmatrix_x4_trans(b, smem_u32(tV + (kt * 16 + (lane & 15)) * T::kRow +
+          ldmatrix_x4_trans(b, smem_u32(tV + (kt * 16 + (lane & 15)) * TV::kRow +
                                         d2 * 16 + (lane >> 4) * 8));
 #pragma unroll
           for (int t = 2; t >= 0; --t) {  // the smallest terms first
@@ -377,9 +388,9 @@ __global__ void __launch_bounds__(kThreads)
     if (row >= a.S) continue;
     const bool valid = row < len;
     const long long off = static_cast<long long>(m) * a.o_s0 + row * a.o_s1 +
-                          h * DH + (lane & 3) * 2;
+                          h * DV + (lane & 3) * 2;
 #pragma unroll
-    for (int d = 0; d < DH / 8; ++d) {
+    for (int d = 0; d < DV / 8; ++d) {
       const float x0 = valid ? o[d][2 * i] / row_sum[i] : 0.f;
       const float x1 = valid ? o[d][2 * i + 1] / row_sum[i] : 0.f;
       if (a.out_f32) {
@@ -396,10 +407,10 @@ __global__ void __launch_bounds__(kThreads)
 
 // Launches above 48 KB of shared memory need the kernel's attribute raised,
 // once per device.
-template <int DH>
+template <int DK, int DV>
 cudaError_t launch(const Args& a, long long blocks, cudaStream_t stream) {
-  auto kernel = causal_prefill_kernel<DH>;
-  constexpr int smem = Tile<DH>::kSmem;
+  auto kernel = causal_prefill_kernel<DK, DV>;
+  constexpr int smem = smem_bytes<DK, DV>();
   if constexpr (smem > 48 * 1024) {
     static std::mutex mu;
     static bool raised[kMaxDevices] = {};
@@ -426,15 +437,15 @@ extern "C" {
 // (s0 over M, s1 over S), every base 16-byte aligned and every stride a
 // multiple of 8; out: float32 (out_f32 = 1) or bfloat16 (0), the same rules
 // at its element size; lengths: [M] int32 on the device, len_s0 elements
-// apart. head_dim is one of
-// 16, 32, ..., 128. Allocates nothing and never synchronises. Returns the
+// apart. (head_dim, v_dim) is (d, d) for d one of 16, 32, ..., 128, or
+// (192, 128). Allocates nothing and never synchronises. Returns the
 // cudaError_t of the launch (0 = launched).
 int mli_prefill_attention(const void* q, const void* k, const void* v,
                           void* out, long long q_s0, long long q_s1,
                           long long k_s0, long long k_s1, long long v_s0,
                           long long v_s1, long long o_s0, long long o_s1,
                           const int* lengths, long long len_s0, int M,
-                          int S, int H, int head_dim, float scale,
+                          int S, int H, int head_dim, int v_dim, float scale,
                           int out_f32, void* stream) {
   if (M <= 0 || S <= 0 || H <= 0) return 0;
   Args a{static_cast<const __nv_bfloat16*>(q),
@@ -446,15 +457,17 @@ int mli_prefill_attention(const void* q, const void* k, const void* v,
   const long long blocks = static_cast<long long>(a.n_qtiles) * M * H;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 192 && v_dim == 128) return launch<192, 128>(a, blocks, s);
+  if (v_dim != head_dim) return cudaErrorInvalidValue;
   switch (head_dim) {
-    case 16: return launch<16>(a, blocks, s);
-    case 32: return launch<32>(a, blocks, s);
-    case 48: return launch<48>(a, blocks, s);
-    case 64: return launch<64>(a, blocks, s);
-    case 80: return launch<80>(a, blocks, s);
-    case 96: return launch<96>(a, blocks, s);
-    case 112: return launch<112>(a, blocks, s);
-    case 128: return launch<128>(a, blocks, s);
+    case 16: return launch<16, 16>(a, blocks, s);
+    case 32: return launch<32, 32>(a, blocks, s);
+    case 48: return launch<48, 48>(a, blocks, s);
+    case 64: return launch<64, 64>(a, blocks, s);
+    case 80: return launch<80, 80>(a, blocks, s);
+    case 96: return launch<96, 96>(a, blocks, s);
+    case 112: return launch<112, 112>(a, blocks, s);
+    case 128: return launch<128, 128>(a, blocks, s);
     default: return cudaErrorInvalidValue;
   }
 }

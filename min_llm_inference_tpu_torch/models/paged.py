@@ -28,6 +28,12 @@ The host-scheduled engines (runtime/engine.py) call ``_prefill`` and
 over fragmented page rows, then n_forward_rounds greedy rounds driven by a
 packed [B, 2+W] scheduler operand.
 
+Latent attention (``DeepSeekV2Config``, models/deepseek_v2.py) keeps one
+pool per layer of ``[n_pages, page_size, latent]`` rows instead: one row a
+token shared by every head (the normed c_kv, then the roped k_pe), no K/V
+planes and no scales. ``make_latent_prefill_writer`` and
+``make_latent_round_callbacks`` write and read it (ops/mla_decode.py).
+
 Ring decode (``make_ring_round_callbacks``): each round's K/V rows go to a
 per-layer ring ``[B, R_pad, 2*Dk]`` (K columns first) instead of the pool;
 a kernel computes the page partial over positions < ring_start (pool
@@ -44,6 +50,7 @@ import torch
 
 from ..config import EngineConfig, ModelConfig, resolve_device
 from ..ops.indexing import index_set_drop_
+from ..ops.mla_decode import mla_decode_attention
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.paged_attention_dense import dense_paged_partial
 from ..ops.paged_attention_dgrid import dgrid_paged_partial
@@ -81,11 +88,18 @@ def init_paged_state(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     names another; raises without a GPU). ``tp`` > 1: one tensor-parallel
     rank's pools, which hold D/tp features (D/2/tp packed)."""
     dev = resolve_device(device)
+    L = model_cfg.n_layers
+    if model_cfg.is_mla:
+        shape = (engine_cfg.n_pages, engine_cfg.page_size,
+                 model_cfg.latent_dim)
+        return PagedKVState(
+            tuple(torch.zeros(shape, dtype=engine_cfg.kv_torch_dtype,
+                              device=dev) for _ in range(L)),
+            (None,) * L, (None,) * L)
     feat = model_cfg.emb_dim // tp
     if engine_cfg.kv_packed:
         feat //= 2
     shape = (engine_cfg.n_pages, 2, engine_cfg.page_size, feat)
-    L = model_cfg.n_layers
     kv = tuple(torch.zeros(shape, dtype=engine_cfg.kv_torch_dtype, device=dev)
                for _ in range(L))
     if engine_cfg.kv_quantized:
@@ -311,6 +325,63 @@ def make_prefill_kv_writer(
         return PagedKVState(tuple(kv_pages), tuple(k_scales), tuple(v_scales))
 
     return write_kv_block, finalize
+
+
+def make_latent_prefill_writer(state: PagedKVState, page_rows,
+                               prompt_lengths, s_pre: int, page_size: int,
+                               n_pages: int):
+    """The prefill writer of a latent pool: ``write(li, rows [M, S, Dl])``
+    puts the rows of positions < prompt_lengths into layer li's pool
+    (whole pages when S is a page multiple, rows past the prompt carrying
+    garbage that every reader masks by length; else row by row). Returns
+    (write, finalize) as make_prefill_kv_writer does."""
+    pools = state.kv_pages
+    P = page_size
+    M = page_rows.shape[0]
+    dev = page_rows.device
+    if s_pre % P == 0:
+        W_pre = s_pre // P
+        covered = (torch.arange(W_pre, dtype=torch.int32, device=dev)[None, :]
+                   * P < prompt_lengths[:, None])
+        idx = torch.where(covered, page_rows[:, :W_pre], n_pages).reshape(-1)
+        unit = P
+    else:
+        positions = torch.arange(s_pre, dtype=torch.int32,
+                                 device=dev)[None, :].expand(M, s_pre)
+        rows3 = page_rows[:, None, :].expand(M, s_pre, page_rows.shape[1])
+        idx = _flat_scatter_indices(
+            rows3, positions, positions < prompt_lengths[:, None], P,
+            n_pages).reshape(-1)
+        unit = 1
+
+    def write(li, rows):
+        Dl = rows.shape[-1]
+        index_set_drop_(pools[li].view(-1, unit, Dl), idx,
+                        rows.reshape(-1, unit, Dl))
+
+    return write, lambda: state
+
+
+def make_latent_round_callbacks(page_table, pools, lengths, page_size: int,
+                                n_pages: int, scale: float, latent: int):
+    """The (write_kv, attend) pair of one decode round over latent pools:
+    write_kv(li, pos, row [B, Dl], live) puts each live slot's row at its
+    position (dead slots' writes dropped), then attend(li, q [B, H, Dl],
+    lengths) -> [B, H, latent] reads the pool through the latent decode
+    kernel (ops/mla_decode.py; its plain version on the CPU)."""
+    live = lengths > 0
+    pos = torch.clamp_min(lengths - 1, 0)
+    flat_idx = _flat_scatter_indices(page_table, pos, live, page_size,
+                                     n_pages)
+
+    def write_kv(li, pos_, row, live_):
+        index_set_drop_(pools[li].view(-1, row.shape[-1]), flat_idx, row)
+
+    def attend(li, q, lens):
+        return mla_decode_attention(q, pools[li], lens, page_table, scale,
+                                    latent)
+
+    return write_kv, attend
 
 
 def torch_paged_attend(pool, ks, vs, q, lengths, page_table, page_size,

@@ -39,7 +39,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("paged_attention_grouped.cu", "paged_attention_dgrid.cu",
            "ring_flush.cu", "prefill_scatter.cu", "paged_attention.cu",
            "paged_attention_flat.cu", "int4_probe.cu", "graph_cond.cu",
-           "sample_next_token.cu", "prefill_attention.cu")
+           "sample_next_token.cu", "prefill_attention.cu", "mla_decode.cu")
 # host C++ sources (no CUDA): built by the host compiler
 HOST_SOURCES = ("scheduler.cpp",)
 # dynamic shared memory a block may use on Hopper (227 KB)

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..config import EngineConfig, ModelConfig
+from ..config import EngineConfig, ModelConfig, refuse_latent
 from ..metrics import get_global_throughput_counter
 from ..models.model import DEFAULT_CTX
 from ..runtime.autonomous import (
@@ -112,6 +112,7 @@ class ShardedAutonomousEngine:
         bursts_per_chunk: int = 4,
         request_capacity: int | None = None,
     ):
+        refuse_latent(model_cfg, type(self).__name__)
         model_cfg.validate()
         engine_cfg.validate(model_cfg)
         mesh = resolve_mesh(n_devices, tp, functools.partial(

@@ -20,7 +20,7 @@ import functools
 
 import torch.distributed as dist
 
-from ..config import EngineConfig, ModelConfig
+from ..config import EngineConfig, ModelConfig, refuse_latent
 from ..runtime.engine import NativePagedEngine, PagedEngine
 from ..runtime.item_storage import ItemStorage
 from .sharded import (
@@ -69,6 +69,7 @@ class ShardedPagedEngine:
     def __init__(self, params, model_cfg: ModelConfig,
                  engine_cfg: EngineConfig, n_devices: int | None = None,
                  tp: int = 1, attention_impl: str = "torch"):
+        refuse_latent(model_cfg, type(self).__name__)
         model_cfg.validate()
         engine_cfg.validate(model_cfg)
         mesh = resolve_mesh(n_devices, tp, functools.partial(

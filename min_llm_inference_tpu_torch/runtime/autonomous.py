@@ -47,6 +47,12 @@ the split too, inside the graph), as the JAX burst's scan does. A burst
 the gate skips draws nothing, and the key rides across sub-bursts, chunks
 and drain widths, so the tokens are JAX's for the same seed.
 
+Latent attention (a ``DeepSeekV2Config``, whose ``is_mla`` chooses it): the
+same admission, page groups, prefill bucket, drain downshift and gate over
+a latent pool (models/paged.py), with DeepSeek-V2's prefill and decode
+round (models/deepseek_v2.py) in the burst; its expert layers add their
+rows and their largest expert's rows to ``BurstStats``.
+
 StreamingSession serves on the same burst: submit, step, dispatch/observe,
 poll and close, with rows recycled mod capacity.
 """
@@ -64,10 +70,13 @@ import torch
 
 from ..config import EngineConfig, ModelConfig, resolve_device
 from ..metrics import get_global_throughput_counter
+from ..models import deepseek_v2
 from ..models.model import DEFAULT_CTX, decode_round_tokens, prefill_write_kv
 from ..models.paged import (
     PagedKVState,
     init_paged_state,
+    make_latent_prefill_writer,
+    make_latent_round_callbacks,
     make_prefill_kv_writer,
     make_ring_round_callbacks,
     make_round_kv_callbacks,
@@ -130,21 +139,38 @@ class BurstStats:
     input uploads, status and output reads, and with tracing on the read
     of the device phase table), under overcommit preemptions (read with
     the final outputs), and on CUDA the graphs captured (one per executed
-    width at a queue shape's first run; a capture makes no host sync)."""
+    width at a queue shape's first run; a capture makes no host sync).
+    A model with routed experts adds, over its expert-layer calls (prefill
+    and decode), the rows routed (``expert_rows``: tokens x experts a
+    token) and the rows of each call's busiest expert
+    (``expert_rows_max``), counted on the device from the dispatch's
+    offsets."""
 
     bursts: int = 0
     skipped: int = 0
     rounds: int = 0
     prefills: int = 0
     slot_rounds: int = 0
+    expert_rows: int = 0
+    expert_rows_max: int = 0
     host_syncs: int = 0
     preemptions: int = 0
     captures: int = 0
 
 
-def _check_supported(engine_cfg: EngineConfig, attention_impl: str) -> None:
+def _check_supported(model_cfg: ModelConfig, attention_impl: str,
+                     tp: int) -> None:
     if attention_impl not in ("grouped", "torch"):
         raise ValueError(f"unknown attention_impl {attention_impl!r}")
+    if model_cfg.is_mla and attention_impl != "grouped":
+        raise ValueError("a latent-attention model (DeepSeekV2Config) "
+                         "runs its own latent path; attention_impl names "
+                         "the K/V-pool attentions and stays 'grouped' "
+                         "for it")
+    if model_cfg.is_mla and tp > 1:
+        raise ValueError("latent attention and routed experts run on one "
+                         "device; the tensor-parallel mesh does not split "
+                         "them")
 
 
 def init_auto_state(model_cfg: ModelConfig, engine_cfg: EngineConfig,
@@ -484,8 +510,18 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     scale_reduce = scale_reduce_of(ctx)
     sizes = _prefill_sizes(max_new)
 
+    mla = model_cfg.is_mla
+    expert_counts = counts[_EXPERT_ROWS:_EXPERT_ROWS_MAX + 1]
+
     def prefill(bs):
         def run():
+            if mla:
+                write, _ = make_latent_prefill_writer(
+                    kv, granted[:bs], plens[:bs], S_pre, P, NP)
+                deepseek_v2.prefill_write_kv(
+                    params, model_cfg, prompts[:bs], plens[:bs], write,
+                    expert_counts=expert_counts)
+                return
             write_kv_block, _ = make_prefill_kv_writer(
                 kv, granted[:bs], plens[:bs], S_pre, P, NP, scale_reduce,
                 n_heads=heads)
@@ -526,9 +562,16 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
     row = rid % R_total
     key = st.rng_key
     toks, out_idx, fin_rid, fin_len = [], [], [], []
+    round_tokens = (functools.partial(deepseek_v2.decode_round_tokens,
+                                      expert_counts=expert_counts)
+                    if mla else decode_round_tokens)
     for r in range(R):
         live = lengths > 0
-        if use_ring:
+        if mla:
+            write_kv, attend = make_latent_round_callbacks(
+                page_table, kv_pages, lengths, P, NP, params["mla_scale"],
+                model_cfg.kv_lora_rank)
+        elif use_ring:
             write_kv, attend = make_ring_round_callbacks(
                 model_cfg, engine_cfg, page_table, kv_pages, k_scales,
                 v_scales, rings, ring_scs, lengths, ring_start, col_base + r,
@@ -539,7 +582,7 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
                 kv_pages, k_scales, v_scales, lengths, n_heads=heads,
                 scale_reduce=scale_reduce)
         if sampling is None:
-            tok, new_lengths = decode_round_tokens(
+            tok, new_lengths = round_tokens(
                 params, model_cfg, lengths, last_tokens, write_kv, attend,
                 ctx)
         else:
@@ -549,7 +592,7 @@ def _sub_burst(model_cfg: ModelConfig, engine_cfg: EngineConfig,
                     eof_token_id=model_cfg.eof_token_id,
                     temperature=sampling[0], top_k=sampling[1])
 
-            tok, new_lengths, key = decode_round_tokens(
+            tok, new_lengths, key = round_tokens(
                 params, model_cfg, lengths, last_tokens, write_kv, attend,
                 ctx, next_token_fn=draw)
         # the emitted token's position in its sequence is the old length
@@ -686,8 +729,9 @@ def _compact_slice(st: AutoState, b_new: int) -> AutoState:
 _SLOT_FIELDS = ("page_table", "lengths", "last_tokens", "rid", "allocated",
                 "grown", "adm_seq")
 # device counters of a program, before the kernel launch counts
-_SKIPPED, _ROUNDS, _SLOT_ROUNDS, _PREFILLS = range(4)
-_N_STATS = 4
+(_SKIPPED, _ROUNDS, _SLOT_ROUNDS, _PREFILLS, _EXPERT_ROWS,
+ _EXPERT_ROWS_MAX) = range(6)
+_N_STATS = 6
 
 
 def _round_increments(R: int, b: int, dev) -> torch.Tensor:
@@ -773,6 +817,11 @@ class _Program:
                 body()
         torch.cuda.current_stream(dev).wait_stream(stream)
         self.reset()
+        # the eager bursts' freed blocks stay cached in the allocator's
+        # common pool, where a graph's private pools cannot take them: hand
+        # them back first (a model whose weights and pool fill most of the
+        # card has no room for the graphs beside them)
+        torch.cuda.empty_cache()
         pools = new_pools()
         info = {}
         self.stamped = profiling.tracing()
@@ -848,6 +897,8 @@ def _fold_counts(stats: "BurstStats", counts: np.ndarray) -> None:
     stats.rounds += int(counts[_ROUNDS])
     stats.prefills += int(counts[_PREFILLS])
     stats.slot_rounds += int(counts[_SLOT_ROUNDS])
+    stats.expert_rows += int(counts[_EXPERT_ROWS])
+    stats.expert_rows_max += int(counts[_EXPERT_ROWS_MAX])
     stats.preemptions += int(counts[-1])
     _build.add_device_counts(counts[_N_STATS:-1])
 
@@ -857,10 +908,13 @@ class AutonomousEngine:
 
     ``attention_impl``: ``"grouped"`` (the CUDA kernels: the fused-write
     kernel, or with ``decode_ring`` the ring partial of the configured
-    formulation; their plain versions on the CPU) or ``"torch"`` (scatter +
-    the gather oracle, no ring). ``temperature > 0`` samples (with
-    ``top_k`` > 0 keeping the k largest logits) from the key of
-    ``sample_seed``, as the JAX engine does; 0 decodes greedily.
+    formulation; their plain versions on the CPU), ``"torch"`` (scatter +
+    the gather oracle, no ring). A latent-attention model
+    (``DeepSeekV2Config``) takes the latent pool and the absorbed decode
+    kernel (ops/mla_decode.py) by its ``is_mla``, and refuses any
+    ``attention_impl`` but the default. ``temperature > 0``
+    samples (with ``top_k`` > 0 keeping the k largest logits) from the key
+    of ``sample_seed``, as the JAX engine does; 0 decodes greedily.
     ``device``: ``cuda`` unless the caller names another; raises without a
     GPU. ``params`` are tensors on that device (models.params_from_numpy,
     models.init_params), dense or weight-quantized (ops/quant).
@@ -897,12 +951,13 @@ class AutonomousEngine:
     ):
         model_cfg.validate()
         engine_cfg.validate(model_cfg)
-        _check_supported(engine_cfg, attention_impl)
+        _check_supported(model_cfg, attention_impl, ctx.tp)
         self.device = resolve_device(device)
         if params_device(params).type != self.device.type:
             raise ValueError(f"params are on {params_device(params)}, the "
                              f"engine runs on {self.device}")
-        self.params = fuse_qkv_params(params)
+        self.params = (deepseek_v2.prepare_params(params, model_cfg)
+                       if model_cfg.is_mla else fuse_qkv_params(params))
         self.model_cfg = model_cfg
         self.engine_cfg = engine_cfg
         self.ctx = ctx

@@ -37,7 +37,12 @@ from typing import List
 import numpy as np
 import torch
 
-from ..config import EngineConfig, ModelConfig, resolve_device
+from ..config import (
+    EngineConfig,
+    ModelConfig,
+    refuse_latent,
+    resolve_device,
+)
 from ..metrics import get_global_throughput_counter
 from ..models.dense import init_dense_state, make_dense_fns
 from ..models.model import DEFAULT_CTX
@@ -78,6 +83,7 @@ class EngineStats:
 class _EngineBase:
     def __init__(self, params, model_cfg: ModelConfig,
                  engine_cfg: EngineConfig, device=None):
+        refuse_latent(model_cfg, type(self).__name__)
         model_cfg.validate()
         engine_cfg.validate(model_cfg)
         self.device = resolve_device(device)
